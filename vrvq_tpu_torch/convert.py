@@ -1,0 +1,81 @@
+"""Parameters into the port: from the JAX package's flax tree, or drawn from a
+seed.
+
+The port names its modules as the JAX package's flax modules are named, so a
+flax path ``encoder/block_0/res0/conv1/v`` is the port's state-dict key
+``encoder.block_0.res0.conv1.v``. Only the layouts differ:
+
+  * conv ``v``: flax ``(k, in, out)`` -> port ``(out, in, k)``;
+  * transposed conv (the decoder blocks' ``up``) ``v``: ``(in, out, k)`` in
+    both;
+  * 1x1 projection (``in_proj``/``out_proj``) ``v``: ``(in, out)`` in both;
+  * ``g``, ``bias``, Snake ``alpha`` and ``codebook`` are unchanged; ``g``
+    follows its layer's grouping (per out-channel, per IN-channel for a
+    transposed conv).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .models.wn_dense import WNDense1x1
+from .models.quantize import VectorQuantize
+from .nn.layers import Snake1d, WNConv1d, WNConvTranspose1d
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for name, node in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(node, Mapping):
+            out.update(_flatten(node, key + "."))
+        else:
+            out[key] = np.asarray(node)
+    return out
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``DAC_VRVQ``'s parameter tree (numpy leaves, with or without
+    the top-level ``params`` key) -> the port's ``state_dict``."""
+    tree = params.get("params", params)
+    sd = {}
+    for key, value in _flatten(tree).items():
+        parts = key.split(".")
+        transposed_conv = parts[-2:-1] == ["up"]
+        if parts[-1] == "v" and value.ndim == 3 and not transposed_conv:
+            value = np.transpose(value, (2, 1, 0))  # (k, in, out) -> (out, in, k)
+        sd[key] = torch.tensor(np.ascontiguousarray(value, np.float32))
+    return sd
+
+
+def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
+    return torch.rand(shape, generator=gen) * (2.0 * bound) - bound
+
+
+@torch.no_grad()
+def init_params(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Draw every parameter of ``model`` on the CPU from ``generator``, as the
+    JAX package initializes: conv and projection ``v`` uniform in
+    +-1/sqrt(fan_in), ``g = ||v||`` (so the effective weight is ``v``),
+    zero biases, codebooks N(0, 1), Snake alpha 1."""
+    for m in model.modules():
+        if isinstance(m, (WNConv1d, WNConvTranspose1d)):
+            cin = m.v.shape[1] if isinstance(m, WNConv1d) else m.v.shape[0]
+            v = _uniform(m.v.shape, 1.0 / math.sqrt(cin * m.kernel_size), generator)
+            m.v.copy_(v)
+            m.g.copy_(torch.sqrt(torch.sum(v * v, dim=(1, 2))))
+            m.bias.zero_()
+        elif isinstance(m, WNDense1x1):
+            v = _uniform(m.v.shape, 1.0 / math.sqrt(m.v.shape[0]), generator)
+            m.v.copy_(v)
+            m.g.copy_(torch.sqrt(torch.sum(v * v, dim=0)))
+            m.bias.zero_()
+        elif isinstance(m, VectorQuantize):
+            m.codebook.copy_(torch.randn(m.codebook.shape, generator=generator))
+        elif isinstance(m, Snake1d):
+            m.alpha.fill_(1.0)
+    return model

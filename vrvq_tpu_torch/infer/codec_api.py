@@ -1,0 +1,251 @@
+"""Chunked compression API: wav -> ``.dac`` -> wav.
+
+Counterpart of ``vrvq_tpu/infer/codec_api.py`` (``CodecProcessor``):
+
+  * a signal no longer than the window is coded in one shot by the padded
+    codec;
+  * a longer one by the padding-free codec on fixed windows, zero-padded by
+    the receptive delay at both ends, with a stride of one window's
+    padding-free decode length so that decoded windows join seamlessly
+    (``window_geometry``);
+  * loudness is measured (BS.1770), normalized to ``normalize_db`` before
+    encoding and restored after decoding.
+
+VBR: with ``level`` the per-frame codebook counts go into the ``.dac``
+(``vbr_counts``) and ``decompress`` rebuilds the stage mask from them.
+
+``fused_quantizer=True`` encodes through the fused RVQ kernel
+(``ops/rvq_kernel.py``): encoder, importance subnet, counts, then all Nq
+stages in one launch. Its weights are stacked and prepared once per
+``compress`` call, from the model's parameters as they are then. PyTorch runs eagerly, so the JAX version's jitted
+programs and dispatch-ahead queues are plain calls and loops here; there is
+no mesh. Everything runs under ``torch.inference_mode()``, with TF32 off.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from .. import disable_tf32
+from ..audio import Signal
+from ..models import codec as codec_arith
+from ..models.codec import DACFile
+from ..ops.masks import generate_mask_hard
+from ..ops.rvq_kernel import (prepare_rvq, quantize_fused,
+                               stack_quantizer_weights)
+
+
+class CodecProcessor:
+    """Host-side orchestrator of the padded and padding-free codecs, which
+    share ``model``'s parameters and device."""
+
+    def __init__(self, model, fused_quantizer: bool = False):
+        disable_tf32()
+        self.model = model.eval()
+        self.model_nopad = model.clone(padding=False).eval()
+        self.device = next(model.parameters()).device
+        self.fused_quantizer = fused_quantizer
+
+    # ------------------------------------------------------------ encode
+    def _encode(self, variant, audio: torch.Tensor,
+                n_quantizers: Optional[int], level: float, rvq=None):
+        """(codes (B, Nq', T'), counts (B, T') uint8 or None) on the device;
+        counts only in VBR (``n_quantizers`` None). ``rvq``: the prepared
+        quantizer weights, with ``fused_quantizer``."""
+        n_q = variant.n_codebooks
+        if not self.fused_quantizer:
+            enc = variant.encode(audio, n_quantizers=n_quantizers, level=level)
+            counts = None
+            if n_quantizers is None:
+                counts = self._counts(enc["imp_map"], level, n_q)
+            return enc["codes"], counts
+        # fused: the module path's encoder and importance subnet, then the
+        # whole residual loop in one kernel launch
+        z, feat = variant.encoder(audio, return_feat=True)
+        counts = None
+        if n_quantizers is None:
+            imp_map = variant.quantizer.importance(feat, z.shape[-1])
+            counts = self._counts(imp_map, level, n_q)
+        _, codes = quantize_fused(rvq, z)
+        if n_quantizers is not None:
+            codes = codes[:, :n_quantizers]  # CBR: later stages are unused
+        return codes, counts
+
+    @staticmethod
+    def _counts(imp_map: torch.Tensor, level: float, n_q: int) -> torch.Tensor:
+        return torch.sum(
+            generate_mask_hard(imp_map * level * n_q, n_q), dim=1
+        ).to(torch.uint8)
+
+    # ---------------------------------------------------------- geometry
+    def window_geometry(self, win_duration: float):
+        """``(window, hop, frames, delay)`` of the padding-free windowed
+        path: window length in samples (a hop multiple), the stride between
+        windows, codes frames per window and the zero-pad delay at the ends.
+
+        The walk covers only the encoder and decoder convs, the chain the
+        decoded audio passes through; the importance subnet is a side branch
+        that does not shorten it. So the padding-free decode of one window's
+        frames is exactly ``hop`` samples long."""
+        model = self.model
+        n_samples = int(win_duration * model.sample_rate)
+        window = int(
+            math.ceil(n_samples / model.hop_length) * model.hop_length
+        )
+        chain = (
+            codec_arith.encoder_conv_specs(model.config.encoder_rates)
+            + codec_arith.decoder_conv_specs(model.config.decoder_rates)
+        )
+        hop = codec_arith.output_length(chain, window)
+        edge_delay = codec_arith.delay(chain)
+        if hop <= 0:
+            min_win = (2 * edge_delay + model.hop_length) / model.sample_rate
+            raise ValueError(
+                f"win_duration={win_duration}s is smaller than the "
+                f"model's receptive field; the padding-free window "
+                f"produces no output. Use win_duration > {min_win:.2f}s."
+            )
+        frames = codec_arith.output_length(
+            codec_arith.encoder_conv_specs(model.config.encoder_rates), window
+        )
+        return window, hop, frames, edge_delay
+
+    # ------------------------------------------------------------ compress
+    def compress(
+        self,
+        audio_path_or_signal: Union[str, Path, Signal],
+        win_duration: Optional[float] = 1.0,
+        normalize_db: Optional[float] = -16,
+        n_quantizers: Optional[int] = None,
+        level: Optional[float] = None,
+    ) -> DACFile:
+        """Audio -> ``DACFile``. VBR when ``level`` is given and
+        ``n_quantizers`` is not; ``win_duration=None`` codes in one shot."""
+        with torch.inference_mode():
+            return self._compress(audio_path_or_signal, win_duration,
+                                  normalize_db, n_quantizers, level)
+
+    def _compress(self, audio_path_or_signal, win_duration, normalize_db,
+                  n_quantizers, level) -> DACFile:
+        model = self.model
+        signal = audio_path_or_signal
+        if isinstance(signal, (str, Path)):
+            signal = Signal.load(signal)
+        signal = signal.clone()
+        original_sr = signal.sample_rate
+        original_length = signal.signal_length
+
+        signal.resample(model.sample_rate)
+        input_db = float(signal.loudness()[0])
+        if normalize_db is not None:
+            signal.normalize(normalize_db)
+        signal.ensure_max_of_audio()
+
+        data = np.asarray(signal.audio_data, np.float32)
+        nb, nac, nt = data.shape
+        data = data.reshape(nb * nac, 1, nt)
+        if win_duration is None:
+            win_duration = signal.signal_duration
+
+        vbr = n_quantizers is None and level is not None
+        lv = level if level is not None else 1.0
+        rvq = None
+        if self.fused_quantizer:
+            rvq = prepare_rvq(stack_quantizer_weights(model.quantizer))
+
+        if signal.signal_duration <= win_duration:
+            # one shot through the padded codec
+            padding = True
+            right_pad = math.ceil(nt / model.hop_length) * model.hop_length - nt
+            x = np.pad(data, ((0, 0), (0, 0), (0, right_pad)))
+            codes, counts = self._encode(model, self._to_device(x),
+                                         n_quantizers, lv, rvq)
+            codes = codes.cpu().numpy()
+            counts = counts.cpu().numpy() if vbr else None
+            chunk_length = codes.shape[-1]
+        else:
+            # padding-free codec on windows, the ends padded by the delay
+            padding = False
+            n_samples, hop, _, delay = self.window_geometry(win_duration)
+            data = np.pad(data, ((0, 0), (0, 0), (delay, delay)))
+            codes_list, counts_list = [], []
+            for i in range(0, nt, hop):
+                x = data[..., i: i + n_samples]
+                pad = n_samples - x.shape[-1]
+                if pad > 0:
+                    x = np.pad(x, ((0, 0), (0, 0), (0, pad)))
+                codes_i, counts_i = self._encode(
+                    self.model_nopad, self._to_device(x), n_quantizers, lv, rvq
+                )
+                codes_list.append(codes_i.cpu().numpy())
+                if vbr:
+                    counts_list.append(counts_i.cpu().numpy())
+            chunk_length = codes_list[0].shape[-1]
+            codes = np.concatenate(codes_list, axis=-1)
+            counts = np.concatenate(counts_list, axis=-1) if vbr else None
+
+        return DACFile(
+            codes=np.ascontiguousarray(codes, np.int32),
+            chunk_length=chunk_length,
+            original_length=original_length,
+            input_db=input_db,
+            channels=nac,
+            sample_rate=original_sr,
+            padding=padding,
+            vbr_counts=counts,
+        )
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # ---------------------------------------------------------- decompress
+    def decompress(self, obj: Union[str, Path, DACFile]) -> Signal:
+        """``DACFile`` (or its path) -> Signal at the file's length and
+        loudness."""
+        with torch.inference_mode():
+            return self._decompress(obj)
+
+    def _decompress(self, obj) -> Signal:
+        model = self.model
+        if isinstance(obj, (str, Path)):
+            obj = DACFile.load(obj)
+
+        codes = np.asarray(obj.codes, np.int32)
+        chunk_length = obj.chunk_length
+        variant = self.model if obj.padding else self.model_nopad
+
+        n_q = codes.shape[1]
+        parts = []
+        for i in range(0, codes.shape[-1], chunk_length):
+            c = codes[..., i: i + chunk_length]
+            if c.shape[-1] < chunk_length:
+                c = np.pad(c, ((0, 0), (0, 0), (0, chunk_length - c.shape[-1])))
+            if obj.vbr_counts is not None:
+                counts = obj.vbr_counts[..., i: i + chunk_length]
+                if counts.shape[-1] < chunk_length:
+                    counts = np.pad(
+                        counts, ((0, 0), (0, chunk_length - counts.shape[-1]))
+                    )
+                stage = np.arange(n_q).reshape(1, n_q, 1)
+                mask = (stage < counts[:, None, :]).astype(np.float32)
+            else:
+                mask = np.ones((c.shape[0], n_q, chunk_length), np.float32)
+            audio = variant.decode_from_codes(
+                self._to_device(c).long(), self._to_device(mask)
+            )
+            parts.append(audio.cpu().numpy())
+
+        audio = np.concatenate(parts, axis=-1)
+        out = Signal(audio, model.sample_rate)
+        out.normalize(obj.input_db)
+        out.resample(obj.sample_rate)
+        out.audio_data = out.audio_data[..., : obj.original_length]
+        out.audio_data = out.audio_data.reshape(
+            -1, obj.channels, obj.original_length
+        )
+        return out

@@ -1,0 +1,156 @@
+"""Weight-normed convs, Snake and the codec's residual blocks, in (B, C, T).
+
+Counterpart of ``vrvq_tpu/nn/layers.py``, which works channels-last; here the
+layout is PyTorch's. Weight norm is computed in ``forward`` as
+``w = v * (g / max(||v||, 1e-32))``, the JAX layer's expression: a conv's norm
+is taken per out-channel over (in, k), a transposed conv's per IN-channel over
+(out, k). Biases are added after the convolution, as the JAX layers do.
+
+``pad_mode='none'`` builds the padding-free variant that chunked compression
+runs; a ResidualUnit then center-crops its skip path to the shorter output.
+The time-packed layouts and ``DenoisingBlock`` of the JAX module are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.snake import snake, snake_reference
+
+
+def weight_norm(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
+    """``v * (g / max(||v||, 1e-32))``, the norm taken over ``dims`` and ``g``
+    shaped to broadcast against it."""
+    norm = torch.sqrt(torch.sum(v * v, dim=dims, keepdim=True))
+    return v * (g / torch.clamp(norm, min=1e-32))
+
+
+class WNConv1d(nn.Module):
+    """Weight-normed 1-D conv. ``v (out, in, k)``, ``g (out,)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 pad_mode: str = "zeros"):
+        super().__init__()
+        if pad_mode not in ("zeros", "none"):
+            raise ValueError(f"pad_mode must be 'zeros' or 'none', got {pad_mode}")
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding if pad_mode == "zeros" else 0
+        self.dilation = dilation
+        self.v = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
+        self.g = nn.Parameter(torch.empty(out_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def weight(self) -> torch.Tensor:
+        return weight_norm(self.v, self.g.reshape(-1, 1, 1), (1, 2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x, self.weight(), None, self.stride, self.padding,
+                     self.dilation)
+        return y + self.bias.reshape(1, -1, 1)
+
+
+class WNConvTranspose1d(nn.Module):
+    """Weight-normed transposed 1-D conv. ``v (in, out, k)``, ``g (in,)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, pad_mode: str = "zeros"):
+        super().__init__()
+        if pad_mode not in ("zeros", "none"):
+            raise ValueError(f"pad_mode must be 'zeros' or 'none', got {pad_mode}")
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding if pad_mode == "zeros" else 0
+        self.v = nn.Parameter(torch.empty(in_channels, out_channels, kernel_size))
+        self.g = nn.Parameter(torch.empty(in_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def weight(self) -> torch.Tensor:
+        return weight_norm(self.v, self.g.reshape(-1, 1, 1), (1, 2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose1d(x, self.weight(), None, self.stride,
+                               self.padding)
+        return y + self.bias.reshape(1, -1, 1)
+
+
+class Snake1d(nn.Module):
+    """Snake with a per-channel ``alpha (C,)``. On the card it launches the
+    Snake kernel unless ``use_kernel`` is off (the plain version then runs
+    there, for comparisons)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.empty(channels))
+        self.use_kernel = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_kernel:
+            return snake(x, self.alpha)
+        return snake_reference(x, self.alpha)
+
+
+class ResidualUnit(nn.Module):
+    """Snake -> dilated k=7 conv -> Snake -> k=1 conv, plus the skip path,
+    center-cropped to the output when padding is off."""
+
+    def __init__(self, dim: int, dilation: int = 1, padding: bool = True):
+        super().__init__()
+        pad_mode = "zeros" if padding else "none"
+        self.snake1 = Snake1d(dim)
+        self.conv1 = WNConv1d(dim, dim, 7, dilation=dilation,
+                              padding=3 * dilation, pad_mode=pad_mode)
+        self.snake2 = Snake1d(dim)
+        self.conv2 = WNConv1d(dim, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(self.snake2(self.conv1(self.snake1(x))))
+        crop = (x.shape[-1] - y.shape[-1]) // 2
+        if crop > 0:
+            x = x[..., crop:-crop]
+        return x + y
+
+
+class EncoderBlock(nn.Module):
+    """3 ResidualUnits (dilations 1/3/9 at dim/2) + Snake + strided conv."""
+
+    def __init__(self, dim: int, stride: int = 1, padding: bool = True):
+        super().__init__()
+        half = dim // 2
+        self.res0 = ResidualUnit(half, 1, padding)
+        self.res1 = ResidualUnit(half, 3, padding)
+        self.res2 = ResidualUnit(half, 9, padding)
+        self.snake = Snake1d(half)
+        self.down = WNConv1d(half, dim, 2 * stride, stride=stride,
+                             padding=math.ceil(stride / 2),
+                             pad_mode="zeros" if padding else "none")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.res2(self.res1(self.res0(x)))
+        return self.down(self.snake(x))
+
+
+class DecoderBlock(nn.Module):
+    """Snake + transposed conv (kernel 2 * stride) + 3 ResidualUnits."""
+
+    def __init__(self, input_dim: int, output_dim: int, stride: int = 1,
+                 padding: bool = True):
+        super().__init__()
+        self.snake = Snake1d(input_dim)
+        self.up = WNConvTranspose1d(input_dim, output_dim, 2 * stride,
+                                    stride=stride,
+                                    padding=math.ceil(stride / 2),
+                                    pad_mode="zeros" if padding else "none")
+        self.res0 = ResidualUnit(output_dim, 1, padding)
+        self.res1 = ResidualUnit(output_dim, 3, padding)
+        self.res2 = ResidualUnit(output_dim, 9, padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.up(self.snake(x))
+        return self.res2(self.res1(self.res0(x)))

@@ -1,0 +1,220 @@
+"""Fused residual vector quantization: all Nq stages in one kernel.
+
+Counterpart of ``vrvq_tpu/ops/rvq_kernel.py``. ``fused_rvq`` launches the CUDA
+kernel (``kernels/csrc/rvq.cu``, the port of the Pallas ``_rvq_kernel``) for
+tensors on the card and runs ``fused_rvq_reference`` for tensors on the CPU.
+The kernel keeps the residual on chip across the stages and looks the
+codebook row up with a gather instead of the TPU kernel's one-hot matmul.
+
+Inputs are the effective (weight-norm-resolved) projection weights, see
+``stack_quantizer_weights``. Frames are rows: ``z (F, D)``. The kernel also
+reads wi^T, the normalized codebook^T and its squared norms; ``prepare_rvq``
+computes them once for callers that quantize many windows with the same
+weights (``quantize_fused``), and ``fused_rvq`` on every call.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels import LAUNCHES, check, library
+
+
+class RVQWeights(NamedTuple):
+    wi: torch.Tensor  # (Nq, D, d)
+    bi: torch.Tensor  # (Nq, d)
+    wo: torch.Tensor  # (Nq, d, D)
+    bo: torch.Tensor  # (Nq, D)
+    cb: torch.Tensor  # (Nq, K, d)
+
+
+def stack_quantizer_weights(quantizer) -> RVQWeights:
+    """Resolve weight norm and stack every stage's projections and codebook.
+
+    ``quantizer``: a ``VBRResidualVectorQuantize`` (its ``quantizers``)."""
+    stages = list(quantizer.quantizers)
+    return RVQWeights(
+        torch.stack([q.in_proj.weight() for q in stages]),
+        torch.stack([q.in_proj.bias for q in stages]),
+        torch.stack([q.out_proj.weight() for q in stages]),
+        torch.stack([q.out_proj.bias for q in stages]),
+        torch.stack([q.codebook for q in stages]),
+    )
+
+
+class PreparedRVQ(NamedTuple):
+    """``RVQWeights`` with the kernel's extra operands."""
+
+    weights: RVQWeights
+    wi_t: torch.Tensor  # (Nq, d, D)
+    cn_t: torch.Tensor  # (Nq, d, K) normalized codebook, transposed
+    cn2: torch.Tensor  # (Nq, K) |cn|^2, the plain version's expression
+
+
+def prepare_rvq(weights: RVQWeights) -> PreparedRVQ:
+    """Weight preparation for the kernel, so that it scores exactly as the
+    plain version does."""
+    cn = _normalize(weights.cb)
+    return PreparedRVQ(
+        RVQWeights(*(t.contiguous() for t in weights)),
+        weights.wi.transpose(1, 2).contiguous(),
+        cn.transpose(1, 2).contiguous(),
+        torch.sum(cn * cn, dim=2).contiguous(),
+    )
+
+
+def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    n = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    return x / torch.clamp(n, min=eps)
+
+
+def _stages(z, wi, bi, wo, bo, cb):
+    """The plain residual loop: yields each stage's scores ``-dist (F, K)``,
+    codes ``(F,)`` and out_proj output ``(F, D)``."""
+    residual = z.float()
+    for i in range(wi.shape[0]):
+        e = residual @ wi[i] + bi[i]
+        en = _normalize(e)
+        cn = _normalize(cb[i])
+        dist = (
+            torch.sum(en * en, dim=1, keepdim=True)
+            - 2.0 * (en @ cn.T)
+            + torch.sum(cn * cn, dim=1, keepdim=True).T
+        )
+        idx = torch.argmax(-dist, dim=1)  # first max on ties
+        # the module path's straight-through arithmetic, which is not
+        # out_proj(zq) in floating point
+        zq_e = e + (cb[i][idx] - e)
+        out = zq_e @ wo[i] + bo[i]
+        residual = residual - out
+        yield -dist, idx, out
+
+
+def fused_rvq_reference(z, wi, bi, wo, bo, cb, mask=None):
+    """Plain version of the fused kernel. z (F, D); mask (F, Nq) or None.
+    Returns (z_q (F, D), codes (F, Nq) int32)."""
+    z_q = torch.zeros_like(z, dtype=torch.float32)
+    codes = []
+    for i, (_, idx, out) in enumerate(_stages(z, wi, bi, wo, bo, cb)):
+        codes.append(idx)
+        if mask is not None:
+            out = out * mask[:, i:i + 1]
+        z_q = z_q + out
+    return z_q.to(z.dtype), torch.stack(codes, dim=1).to(torch.int32)
+
+
+def reference_margins(z, wi, bi, wo, bo, cb) -> torch.Tensor:
+    """Smallest top-2 score margin of each frame over the stages of the plain
+    version (F,): frames whose margin is tiny may take another code under
+    another summation order."""
+    margin = torch.full((z.shape[0],), float("inf"), device=z.device)
+    for scores, _, _ in _stages(z, wi, bi, wo, bo, cb):
+        top = torch.topk(scores, 2, dim=1).values
+        margin = torch.minimum(margin, top[:, 0] - top[:, 1])
+    return margin
+
+
+def fused_rvq(
+    z: torch.Tensor,
+    wi: torch.Tensor,
+    bi: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    cb: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused RVQ with optional VBR gating.
+
+    z (F, D) frames; mask (F, Nq) stage gate (1 = keep) or None for all
+    stages. Returns (z_q (F, D), codes (F, Nq) int32)."""
+    if z.device.type == "cpu":
+        return fused_rvq_reference(z, wi, bi, wo, bo, cb, mask)
+    if z.device.type != "cuda":
+        raise ValueError(f"fused_rvq: unsupported device {z.device}")
+    weights = RVQWeights(wi, bi, wo, bo, cb)
+    _check(z, weights, mask)
+    return fused_rvq_prepared(z, prepare_rvq(weights), mask)
+
+
+def _check(z, weights: RVQWeights, mask) -> None:
+    n_q, d_model, d_code = weights.wi.shape
+    k = weights.cb.shape[1]
+    f = z.shape[0]
+    expected = {
+        "z": (z, (f, d_model)), "wi": (weights.wi, (n_q, d_model, d_code)),
+        "bi": (weights.bi, (n_q, d_code)), "wo": (weights.wo, (n_q, d_code, d_model)),
+        "bo": (weights.bo, (n_q, d_model)), "cb": (weights.cb, (n_q, k, d_code)),
+    }
+    if mask is not None:
+        expected["mask"] = (mask, (f, n_q))
+    for name, (t, shape) in expected.items():
+        if t.device != z.device:
+            raise ValueError(f"fused_rvq: {name} is on {t.device}, z on {z.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_rvq: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"fused_rvq: {name} has shape {tuple(t.shape)}, expected {shape}"
+            )
+    if d_code not in (4, 8):
+        raise ValueError(f"fused_rvq: codebook_dim {d_code} not in (4, 8)")
+
+
+def fused_rvq_prepared(
+    z: torch.Tensor, prepared: PreparedRVQ, mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_rvq`` on weights that ``prepare_rvq`` has prepared."""
+    w = prepared.weights
+    if z.device.type == "cpu":
+        return fused_rvq_reference(z, *w, mask)
+    if z.device.type != "cuda":
+        raise ValueError(f"fused_rvq: unsupported device {z.device}")
+    _check(z, w, mask)
+    n_q, d_model, d_code = w.wi.shape
+    k = w.cb.shape[1]
+    f = z.shape[0]
+    lib = library()
+    smem = lib.vrvq_rvq_smem_bytes(d_model, k, d_code)
+    limit = getattr(torch.cuda.get_device_properties(z.device),
+                    "shared_memory_per_block_optin", None)
+    if limit is not None and smem > limit:
+        raise ValueError(
+            f"fused_rvq: needs {smem} B of shared memory per block, the card "
+            f"allows {limit} (D={d_model}, K={k}, d={d_code})"
+        )
+    z = z.contiguous()
+    mask = mask.contiguous() if mask is not None else None
+    z_q = torch.empty_like(z)
+    codes = torch.empty((f, n_q), dtype=torch.int32, device=z.device)
+    if f == 0:
+        return z_q, codes
+    err = lib.vrvq_rvq_forward(
+        z.data_ptr(), prepared.wi_t.data_ptr(), w.bi.data_ptr(),
+        w.wo.data_ptr(), w.bo.data_ptr(), w.cb.data_ptr(),
+        prepared.cn_t.data_ptr(), prepared.cn2.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        z_q.data_ptr(), codes.data_ptr(), f, d_model, n_q, k, d_code,
+        torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    LAUNCHES["rvq"] += 1
+    check(err, "fused_rvq")
+    return z_q, codes
+
+
+def quantize_fused(prepared: PreparedRVQ, z_bdt: torch.Tensor,
+                   mask_bnt: Optional[torch.Tensor] = None):
+    """(B, D, T) latents (+ (B, Nq, T) mask) through ``fused_rvq_prepared``.
+    Returns (z_q (B, D, T), codes (B, Nq, T))."""
+    b, d, t = z_bdt.shape
+    n_q = prepared.weights.wi.shape[0]
+    z = z_bdt.transpose(1, 2).reshape(b * t, d)
+    mask = None
+    if mask_bnt is not None:
+        mask = mask_bnt.transpose(1, 2).reshape(b * t, n_q)
+    z_q, codes = fused_rvq_prepared(z, prepared, mask)
+    return (
+        z_q.reshape(b, t, d).transpose(1, 2),
+        codes.reshape(b, t, n_q).transpose(1, 2),
+    )
