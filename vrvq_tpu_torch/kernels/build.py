@@ -43,10 +43,11 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "vrvq_rvq_forward": (
-        [_P] * 11 + [ctypes.c_int] * 5 + [_P],
+        [_P] * 5 + [ctypes.c_int] * 6 + [_P],
         ctypes.c_int,
     ),
-    "vrvq_rvq_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "vrvq_rvq_stage_floats": ([ctypes.c_int] * 4, ctypes.c_int),
+    "vrvq_rvq_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "vrvq_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

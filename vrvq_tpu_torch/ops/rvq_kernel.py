@@ -3,14 +3,17 @@
 Counterpart of ``vrvq_tpu/ops/rvq_kernel.py``. ``fused_rvq`` launches the CUDA
 kernel (``kernels/csrc/rvq.cu``, the port of the Pallas ``_rvq_kernel``) for
 tensors on the card and runs ``fused_rvq_reference`` for tensors on the CPU.
-The kernel keeps the residual on chip across the stages and looks the
-codebook row up with a gather instead of the TPU kernel's one-hot matmul.
+The kernel keeps the residual on chip across the stages and reads the
+winning codebook row instead of the TPU kernel's one-hot matmul.
 
 Inputs are the effective (weight-norm-resolved) projection weights, see
-``stack_quantizer_weights``. Frames are rows: ``z (F, D)``. The kernel also
-reads wi^T, the normalized codebook^T and its squared norms; ``prepare_rvq``
-computes them once for callers that quantize many windows with the same
-weights (``quantize_fused``), and ``fused_rvq`` on every call.
+``stack_quantizer_weights``. Frames are rows: ``z (F, D)``. The kernel runs
+one cluster of ``cs`` CTAs per tile of frames, CTA r owning a 1/cs slice of
+the channels and of the codes; it reads, per stage and CTA, one contiguous
+block of wi^T, wo, bo, the normalized codebook^T, its squared norms, the
+codebook and bi (``pack_rvq``). ``prepare_rvq`` packs them once for callers
+that quantize many windows with the same weights (``quantize_fused``), and
+``fused_rvq`` on every call.
 """
 
 from __future__ import annotations
@@ -45,24 +48,61 @@ def stack_quantizer_weights(quantizer) -> RVQWeights:
 
 
 class PreparedRVQ(NamedTuple):
-    """``RVQWeights`` with the kernel's extra operands."""
+    """``RVQWeights`` with the kernel's packed operand."""
 
     weights: RVQWeights
-    wi_t: torch.Tensor  # (Nq, d, D)
-    cn_t: torch.Tensor  # (Nq, d, K) normalized codebook, transposed
-    cn2: torch.Tensor  # (Nq, K) |cn|^2, the plain version's expression
+    cluster: int  # CTAs per cluster; 0 when no size fits the shapes
+    packed: Optional[torch.Tensor]  # (Nq, cluster, stage floats) or None
+
+
+CLUSTER_SIZES = (8, 4, 2, 1)  # portable sizes, largest first
+
+
+def cluster_size(d_model: int, k: int) -> int:
+    """The largest cluster size that splits the D channels and the K codes
+    into slices of a multiple of 4 floats (16-byte copies), or 0."""
+    for cs in CLUSTER_SIZES:
+        if d_model % (4 * cs) == 0 and k % (4 * cs) == 0:
+            return cs
+    return 0
+
+
+def pack_rvq(weights: RVQWeights, cn: torch.Tensor, cn2: torch.Tensor,
+             cs: int) -> torch.Tensor:
+    """(Nq, cs, floats): for stage s and CTA r, one contiguous block of
+    wi^T[:, rD/cs:(r+1)D/cs] (d, D/cs), wo[:, same] (d, D/cs), bo[same],
+    cn^T[:, rK/cs:(r+1)K/cs] (d, K/cs), cn2[same], cb[same] (K/cs, d), bi.
+    ``cn`` is the normalized codebook (Nq, K, d), ``cn2`` its squared norms."""
+    n_q, d_model, d_code = weights.wi.shape
+    k = weights.cb.shape[1]
+    dc, kc = d_model // cs, k // cs
+
+    def by_rank(t, width):  # (Nq, d, cs * width) -> (Nq, cs, d * width)
+        return t.reshape(n_q, d_code, cs, width).transpose(1, 2).reshape(
+            n_q, cs, d_code * width)
+
+    return torch.cat([
+        by_rank(weights.wi.transpose(1, 2), dc),
+        by_rank(weights.wo, dc),
+        weights.bo.reshape(n_q, cs, dc),
+        by_rank(cn.transpose(1, 2), kc),
+        cn2.reshape(n_q, cs, kc),
+        weights.cb.reshape(n_q, cs, kc * d_code),
+        weights.bi[:, None, :].expand(n_q, cs, d_code),
+    ], dim=2).contiguous()
 
 
 def prepare_rvq(weights: RVQWeights) -> PreparedRVQ:
     """Weight preparation for the kernel, so that it scores exactly as the
-    plain version does."""
+    plain version does: the codebook normalized and its squared norms taken
+    with the plain version's expressions, then packed by CTA."""
+    weights = RVQWeights(*(t.contiguous() for t in weights))
+    cs = cluster_size(weights.wi.shape[1], weights.cb.shape[1])
+    if cs == 0:
+        return PreparedRVQ(weights, 0, None)
     cn = _normalize(weights.cb)
-    return PreparedRVQ(
-        RVQWeights(*(t.contiguous() for t in weights)),
-        weights.wi.transpose(1, 2).contiguous(),
-        cn.transpose(1, 2).contiguous(),
-        torch.sum(cn * cn, dim=2).contiguous(),
-    )
+    return PreparedRVQ(weights, cs,
+                       pack_rvq(weights, cn, torch.sum(cn * cn, dim=2), cs))
 
 
 def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -175,27 +215,38 @@ def fused_rvq_prepared(
     n_q, d_model, d_code = w.wi.shape
     k = w.cb.shape[1]
     f = z.shape[0]
+    cs = prepared.cluster
+    if cs == 0:
+        raise ValueError(
+            f"fused_rvq: no cluster size in {CLUSTER_SIZES} splits D={d_model} "
+            f"and K={k} into slices of a multiple of 4")
     lib = library()
-    smem = lib.vrvq_rvq_smem_bytes(d_model, k, d_code)
+    floats = lib.vrvq_rvq_stage_floats(d_model, k, d_code, cs)
+    if tuple(prepared.packed.shape) != (n_q, cs, floats):
+        raise ValueError(
+            f"fused_rvq: packed weights {tuple(prepared.packed.shape)}, the "
+            f"kernel reads {(n_q, cs, floats)}")
+    smem = lib.vrvq_rvq_smem_bytes(d_model, k, d_code, n_q, cs)
     limit = getattr(torch.cuda.get_device_properties(z.device),
                     "shared_memory_per_block_optin", None)
     if limit is not None and smem > limit:
         raise ValueError(
-            f"fused_rvq: needs {smem} B of shared memory per block, the card "
-            f"allows {limit} (D={d_model}, K={k}, d={d_code})"
+            f"fused_rvq: needs {smem} B of shared memory per CTA, the card "
+            f"allows {limit} (D={d_model}, K={k}, d={d_code}, Nq={n_q}, "
+            f"cluster {cs})"
         )
     z = z.contiguous()
+    if z.data_ptr() % 16:  # the kernel reads z in float4s
+        z = z.clone()
     mask = mask.contiguous() if mask is not None else None
     z_q = torch.empty_like(z)
     codes = torch.empty((f, n_q), dtype=torch.int32, device=z.device)
     if f == 0:
         return z_q, codes
     err = lib.vrvq_rvq_forward(
-        z.data_ptr(), prepared.wi_t.data_ptr(), w.bi.data_ptr(),
-        w.wo.data_ptr(), w.bo.data_ptr(), w.cb.data_ptr(),
-        prepared.cn_t.data_ptr(), prepared.cn2.data_ptr(),
+        z.data_ptr(), prepared.packed.data_ptr(),
         mask.data_ptr() if mask is not None else None,
-        z_q.data_ptr(), codes.data_ptr(), f, d_model, n_q, k, d_code,
+        z_q.data_ptr(), codes.data_ptr(), f, d_model, n_q, k, d_code, cs,
         torch.cuda.current_stream(z.device).cuda_stream,
     )
     LAUNCHES["rvq"] += 1

@@ -43,8 +43,8 @@ def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return y
     err = library().vrvq_snake_forward(
-        x.data_ptr(), alpha.data_ptr(), y.data_ptr(), x.numel(), x.shape[1],
-        x.shape[2], torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), alpha.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
+        x.shape[1], x.shape[2], torch.cuda.current_stream(x.device).cuda_stream,
     )
     LAUNCHES["snake"] += 1
     check(err, "snake")
