@@ -2,7 +2,7 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It builds
-the kernels (one ``nvcc`` call), then runs four phases and prints one line
+the kernels (one ``nvcc`` call), then runs eight phases and prints one line
 for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
@@ -10,7 +10,9 @@ for each:
   kernels  each kernel against its plain PyTorch version on the same inputs
            at the flagship's shapes (K1 also at 28 stages, the 24 kbps
            size): the error, the kernel's and the plain version's device
-           times and the card's lower bound;
+           times and the card's lower bound; K1 also at a window's frames
+           for every codebook width d in {1, 2, 3, 16, 32} and at
+           D = K = 1000 and 6 (flips and errors, untimed);
   serve    the flagship DAC_VRVQ (random seeded weights, 81.56M parameters)
            compresses a seeded 10 s 44.1 kHz clip in VBR through the chunked
            padding-free path with the fused-RVQ kernel, round-trips the .dac
@@ -20,16 +22,41 @@ for each:
            kernel path against the port's plain path (code flips only on
            near-tie frames, identical masks, SI-SDR of the kernel decode
            against the plain decode of the same .dac), and the Snake kernel
-           against its plain version, timed, at every shape of the census.
+           against its plain version, timed, at every shape of the census;
+  fast     the folded float32 profile's codes and audio equal to the live
+           model's; the fast (bfloat16 folded decoder, polynomial Snake),
+           turbo (polynomial Snake in the encoder too) and bfloat16-exact
+           profiles serve the 10 s clip (launches of each Snake mode, census,
+           real-time factors); the Snake kernel in all four modes against
+           its plain versions at every census shape, each mode timed at the
+           census of the profile that runs it; decode SI-SDR of the fast
+           profile against the exact one; ``turbo_gate`` on seeded clips;
+  pool     8 streams x 10 s through ``StreamPool(max_batch=8)`` and
+           ``DecoderPool`` in 1 s pushes: flips against the single-stream
+           codes (near ties and others), decode agreement with the
+           single-stream decoder, launches per window (K1, K2, every kernel)
+           and the real-time factors over all streams; the Snake kernel at
+           every pooled (batch > 1) shape of one round trip: timed in the
+           pool's mode, every mode's error;
+  entropy  a range-coded .dac of the serve phase's codes and the pool's
+           chunks as ``PacketCodec`` packets, both round trips exact;
+  reference the flagship's codes and audio against the CPU's
+           (``vrvq_tpu_torch/reference.py``): flips on near-tie and other
+           frames, mask agreement, decode SI-SDR of the fixture's codes,
+           and as a control the same decode with TF32 convs, which must
+           fall under the bar that the float32 decode clears.
 
 Times are device times with a cold L2 (``vrvq_tpu_torch.kernel_times``: a
 CUDA graph of launches, each after a copy that evicts the L2 cache, less the
 graph of copies alone), taken on the inputs that the kernel was compared on.
-Then a JSON line of the kernels on
-the main path (K2 summed over the census, each shape weighted by its
-launches; K1 at one window's 72 frames), the card's ``nvidia-smi`` line, and
-as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
-and the script exits non-zero; without CUDA it exits non-zero at once.
+Then a JSON line of the kernels on the main paths (K2 in each mode summed
+over the census of the path that runs it, each shape weighted by its
+launches, and over the pool's census; K1 at one window's 72 frames and at a
+pool batch's 576), each
+with the launches of its path (counts cleared just before the path runs,
+read just after), the card's ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises and the script
+exits non-zero; without CUDA it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -43,10 +70,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch import kernel_times as kt
+from vrvq_tpu_torch import reference
+from vrvq_tpu_torch.infer import fast, streaming
 from vrvq_tpu_torch.kernels import build
+from vrvq_tpu_torch.metrics import si_sdr
 from vrvq_tpu_torch.models.quantize import VBRResidualVectorQuantize
 from vrvq_tpu_torch.ops import rvq_kernel as rvq_ops
 from vrvq_tpu_torch.ops import snake as snake_ops
@@ -62,18 +93,23 @@ AGREE_CLIP_S = 3.0  # longer than the window: the chunked path
 ZQ_ATOL = 1e-4
 TIE_MARGIN = kt.TIE_MARGIN
 MIN_SISDR_DB = 60.0
+POOL_STREAMS = 8  # StreamPool(max_batch=8): a batch of 8 windows a push
+POOL_CLIP_S = 10.0
+MIN_POOL_DECODE_DB = 60.0  # DecoderPool against StreamingDecoder, same codes
+MIN_FAST_DB = 30.0  # fast decode against exact (turbo_gate's bar)
+# the card's decode of the fixture's codes against the CPU's: far above the
+# same decode with TF32 convs (printed as the control, which must fall under)
+MIN_REFERENCE_DB = 90.0
+SNAKE_BF16_TOL = 0.0  # bfloat16 modes: the plain version rounds as the kernel
+SNAKE_MODES = ("snake", "snake_approx", "snake_bf16", "snake_approx_bf16")
+# K1's codebook shapes beyond the flagship's (n_q, D, K, d), at a window's
+# frames: every codebook width, and sizes no cluster of 4-wide slices splits
+RVQ_WIDE_SHAPES = [(8, 1024, 1024, d) for d in (1, 2, 3, 16, 32)] + [
+    (8, 1000, 1000, 8), (8, 6, 6, 8)]
 
 
 def phase(name: str, **fields) -> None:
     print(f"{name} " + json.dumps(fields), flush=True)
-
-
-def si_sdr(estimate: np.ndarray, reference: np.ndarray) -> float:
-    est = estimate.astype(np.float64).ravel()
-    ref = reference.astype(np.float64).ravel()
-    target = (np.dot(est, ref) / np.dot(ref, ref)) * ref
-    noise = est - target
-    return float(10.0 * np.log10(np.dot(target, target) / max(np.dot(noise, noise), 1e-300)))
 
 
 def device_phase():
@@ -98,10 +134,15 @@ def device_phase():
     return smi
 
 
-def snake_check(shape, gen):
-    """K2 against its plain version at ``shape``; the same inputs timed."""
-    out = kt.time_snake(snake_ops, *kt.snake_inputs(shape, gen))
-    assert out["max_abs_err"] <= SNAKE_TOL, (shape, out["max_abs_err"])
+def snake_check(shape, gen, mode: str = "snake", timed: bool = True):
+    """K2 in ``mode`` (an ``ops.snake.mode_name``) against its plain version
+    at ``shape``; the same inputs timed when ``timed``. float32 modes within
+    ``SNAKE_TOL``, bfloat16 ones bit-identical."""
+    dtype = torch.bfloat16 if mode.endswith("_bf16") else torch.float32
+    out = kt.time_snake(snake_ops, *kt.snake_inputs(shape, gen, dtype),
+                        approx="approx" in mode, timed=timed)
+    tol = SNAKE_BF16_TOL if dtype == torch.bfloat16 else SNAKE_TOL
+    assert out["max_abs_err"] <= tol, (mode, shape, out["max_abs_err"])
     return out
 
 
@@ -132,10 +173,47 @@ def weights_24kbps(gen):
         return rvq_ops.stack_quantizer_weights(q.to(DEVICE).eval())
 
 
-def serve_phase(model):
+def uniform_weights(gen, n_q, d_model, k, d_code):
+    """K1's weights drawn as the codec's initialization draws them:
+    projections uniform in +-1/sqrt(fan_in), codebooks N(0, 1), small
+    biases."""
+    return rvq_ops.RVQWeights(*(t.to(DEVICE) for t in (
+        (2 * torch.rand(n_q, d_model, d_code, generator=gen) - 1) / d_model ** 0.5,
+        0.1 * torch.randn(n_q, d_code, generator=gen),
+        (2 * torch.rand(n_q, d_code, d_model, generator=gen) - 1) / d_code ** 0.5,
+        0.1 * torch.randn(n_q, d_model, generator=gen),
+        torch.randn(n_q, k, d_code, generator=gen))))
+
+
+def rvq_shape_check(gen, shape, frames: int):
+    """K1 against its plain version at a codebook ``shape`` (n_q, D, K, d),
+    VBR and CBR, untimed: codes equal off near ties, z_q within ``ZQ_ATOL``."""
+    n_q, d_model, k, d_code = shape
+    weights = uniform_weights(gen, n_q, d_model, k, d_code)
+    z, mask = kt.rvq_inputs(frames, n_q, d_model, gen)
+    prepared = rvq_ops.prepare_rvq(weights)
+    out = {"n_q": n_q, "D": d_model, "K": k, "d": d_code, "frames": frames}
+    for mode, m in (("vbr", mask), ("cbr", None)):
+        c = kt.rvq_compare(rvq_ops, z, weights, prepared, m)
+        assert c["flipped_off_tie"] == 0, f"{shape} {mode}: codes differ off ties: {c}"
+        assert c["max_abs_err"] <= ZQ_ATOL, f"{shape} {mode}: z_q differs: {c}"
+        out.update({f"{mode}_{k}": c[k] for k in (
+            "flipped_frames", "near_tie_frames", "max_abs_err")})
+    return out
+
+
+def serve_clip(model):
     sr = model.sample_rate
-    clip = port.synthetic_clip(10.0, sr, SEED)
-    signal = port.Signal(clip, sr)
+    return port.Signal(port.synthetic_clip(10.0, sr, SEED), sr)
+
+
+def serve(model, signal):
+    """The serving path of ``model`` on ``signal``: compress (VBR at level 1,
+    1 s windows, fused quantizer), the ``.dac`` saved and loaded,
+    decompress. A warm-up round trip (cuBLAS/cuDNN handles, allocator) takes
+    the census of the Snake kernel's (mode, shape) -> launches; the launch
+    counts are cleared just before the timed round trip and read just
+    after."""
     proc = port.CodecProcessor(model, fused_quantizer=True)
 
     def round_trip(tmp):
@@ -150,75 +228,105 @@ def serve_phase(model):
         return dac, path.stat().st_size, out, t1 - t0, t3 - t2
 
     with tempfile.TemporaryDirectory() as tmp:
-        # the warm-up (cuBLAS/cuDNN handles, allocator) also takes the census
-        # of the shapes the path hands the Snake kernel
-        with kt.snake_census(proc.model_nopad) as census:
+        with kt.snake_census(proc.model_nopad, by_mode=True) as census:
             round_trip(tmp)
         build.LAUNCHES.clear()
         dac, size, out, enc_s, dec_s = round_trip(tmp)
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
+    seconds = signal.signal_duration
+    assert launches.get("rvq", 0) > 0, launches
+    for mode in {m for m, _ in census}:
+        assert launches.get(mode, 0) == sum(
+            n for (m, _), n in census.items() if m == mode), (census, launches)
+    return {"proc": proc, "dac": dac, "dac_bytes": size, "out": out,
+            "launches": launches, "census": census, "encode_s": enc_s,
+            "decode_s": dec_s, "encode_rtf": seconds / enc_s,
+            "decode_rtf": seconds / dec_s}
 
+
+def of_mode(census, mode):
+    """shape -> launches of one mode of a by-mode census."""
+    return {s: n for (m, s), n in census.items() if m == mode}
+
+
+def serve_phase(model):
+    signal = serve_clip(model)
+    run = serve(model, signal)
+    dac, out, launches = run["dac"], run["out"], run["launches"]
+    census = of_mode(run["census"], "snake")
     audio = out.audio_data
     assert dac.padding is False and dac.vbr_counts is not None
-    assert audio.shape == (1, 1, clip.shape[-1]), audio.shape
+    assert audio.shape == (1, 1, signal.signal_length), audio.shape
     # float32 samples times the float64 loudness gain, as in the JAX package
     assert audio.dtype == np.float64, audio.dtype
     assert np.isfinite(audio).all()
-    assert launches.get("snake", 0) > 0 and launches.get("rvq", 0) > 0, launches
-    assert sum(census.values()) == launches["snake"], (census, launches)
+    assert set(launches) == {"snake", "rvq"}, launches
 
     kept = {}
     for level in (0.5, 2.0):
-        kept[level] = float(proc.compress(signal, win_duration=WINDOW_S,
-                                          level=level).vbr_counts.mean())
+        kept[level] = float(run["proc"].compress(
+            signal, win_duration=WINDOW_S, level=level).vbr_counts.mean())
     assert kept[2.0] > kept[0.5], kept
 
-    seconds = clip.shape[-1] / sr
     phase("serve", params=sum(p.numel() for p in model.parameters()),
-          clip_s=seconds, windows=int(dac.codes.shape[-1] // dac.chunk_length),
-          frames=int(dac.codes.shape[-1]), dac_bytes=size,
+          clip_s=signal.signal_duration,
+          windows=int(dac.codes.shape[-1] // dac.chunk_length),
+          frames=int(dac.codes.shape[-1]), dac_bytes=run["dac_bytes"],
           mean_kept_codebooks=float(dac.vbr_counts.mean()),
           mean_kept_at_level={str(k): v for k, v in kept.items()},
-          encode_s=enc_s, decode_s=dec_s, encode_rtf=seconds / enc_s,
-          decode_rtf=seconds / dec_s, launches=launches,
+          **{k: run[k] for k in ("encode_s", "decode_s", "encode_rtf",
+                                 "decode_rtf", "launches")},
           snake_census=[[list(k), v] for k, v in sorted(census.items())])
-    return launches, census
+    return launches, census, dac
+
+
+class MarginProcessor(port.CodecProcessor):
+    """The plain path (``fused_quantizer=False`` on a model whose Snakes run
+    their plain versions), which also keeps each window's smallest top-2
+    score margin per frame over the quantizer's stages (``margins``)."""
+
+    def __init__(self, model):
+        super().__init__(model.clone(padding=True).use_kernels(False),
+                         fused_quantizer=False)
+        with torch.inference_mode():
+            self.weights = rvq_ops.stack_quantizer_weights(self.model.quantizer)
+        self.margins = []
+
+    def _encode(self, variant, audio, n_quantizers, level, rvq=None):
+        z = variant.encoder(audio)
+        b, d, t = z.shape
+        frames = z.transpose(1, 2).reshape(b * t, d)
+        self.margins.append(rvq_ops.reference_margins(
+            frames, *self.weights).reshape(b, t).cpu().numpy())
+        return super()._encode(variant, audio, n_quantizers, level, rvq)
+
+
+def flips(codes, other, near_tie):
+    """Frames (B, T) whose codes differ in any stage, split by ``near_tie``."""
+    flipped = (codes != other).any(axis=1)
+    assert flipped.shape == near_tie.shape, (flipped.shape, near_tie.shape)
+    return {"flipped_frames": int(flipped.sum()),
+            "flipped_near_tie": int((flipped & near_tie).sum()),
+            "flipped_off_tie": int((flipped & ~near_tie).sum()),
+            "near_tie_frames": int(near_tie.sum()),
+            "code_flip_rate": float((codes != other).mean())}
 
 
 def agree_phase(model, census, gen):
     sr = model.sample_rate
     signal = port.Signal(port.synthetic_clip(AGREE_CLIP_S, sr, SEED + 1), sr)
-    plain = model.clone(padding=True).use_kernels(False)
-    with torch.inference_mode():
-        weights = rvq_ops.stack_quantizer_weights(plain.quantizer)
-
-    class PlainProcessor(port.CodecProcessor):
-        """The plain path, which also keeps each window's smallest top-2
-        score margin per frame over the quantizer's stages."""
-
-        margins = []
-
-        def _encode(self, variant, audio, n_quantizers, level, rvq=None):
-            z = variant.encoder(audio)
-            b, d, t = z.shape
-            frames = z.transpose(1, 2).reshape(b * t, d)
-            self.margins.append(
-                rvq_ops.reference_margins(frames, *weights).reshape(b, t).cpu().numpy())
-            return super()._encode(variant, audio, n_quantizers, level, rvq)
-
     kernel_proc = port.CodecProcessor(model, fused_quantizer=True)
-    plain_proc = PlainProcessor(plain, fused_quantizer=False)
+    plain_proc = MarginProcessor(model)
     fused = kernel_proc.compress(signal, win_duration=WINDOW_S, level=1.0)
     ref = plain_proc.compress(signal, win_duration=WINDOW_S, level=1.0)
     assert fused.padding is False and ref.padding is False
     windows = int(fused.codes.shape[-1] // fused.chunk_length)
     assert windows > 1, windows
 
-    flipped = (fused.codes != ref.codes).any(axis=1)  # (B, frames)
     near_tie = np.concatenate(plain_proc.margins, axis=-1) <= TIE_MARGIN
-    assert flipped.shape == near_tie.shape, (flipped.shape, near_tie.shape)
-    assert not (flipped & ~near_tie).any(), "codes differ off near ties"
+    split = flips(fused.codes, ref.codes, near_tie)
+    assert split["flipped_off_tie"] == 0, f"codes differ off near ties: {split}"
     mask_agree = float((fused.vbr_counts == ref.vbr_counts).mean())
     assert mask_agree == 1.0, mask_agree
 
@@ -232,19 +340,301 @@ def agree_phase(model, census, gen):
     # each shape weighted by its launches
     with torch.inference_mode():
         checks = [snake_check(s, gen) for s in sorted(census)]
-    snake_clip = {k: kt.census_sum(checks, census, k)
-                  for k in ("ms", "plain_ms", "bound_ms")}
-    snake_clip["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    snake_clip = census_row(checks, census)
 
-    phase("agree", windows=windows, frames=int(fused.codes.shape[-1]),
-          code_flip_rate=float((fused.codes != ref.codes).mean()),
-          flipped_frames=int(flipped.sum()), near_tie_frames=int(near_tie.sum()),
+    phase("agree", windows=windows, frames=int(fused.codes.shape[-1]), **split,
           mask_agreement=mask_agree, decode_si_sdr_db=sdr,
           max_abs_diff=float(np.abs(kernel_audio - plain_audio).max()),
           snake_shapes=len(checks), snake_clip=snake_clip,
           snake_by_shape=[{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
                           for c in checks])
     return snake_clip
+
+
+def census_row(checks, census):
+    """K2 over one run of a path: ms, plain_ms and bound_ms summed over its
+    census (each shape weighted by its launches), the largest error."""
+    row = {k: kt.census_sum(checks, census, k)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    row["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    row["shapes"] = len(checks)
+    return row
+
+
+# the path whose census times each Snake mode: exact float32 in the serve
+# phase, the others in the profile that runs them
+MODE_PATHS = {"snake_approx_bf16": "fast", "snake_approx": "turbo",
+              "snake_bf16": "bf16_exact"}
+
+
+def fast_phase(model, serve_dac, census, gen):
+    sr = model.sample_rate
+    # the folded float32 profile (encoder too) against the live model
+    agree_sig = port.Signal(port.synthetic_clip(AGREE_CLIP_S, sr, SEED + 1), sr)
+    folded = fast.make_inference_model(model, decode_dtype=None,
+                                       snake_approx=False, fold_encoder=True)
+    live_proc = port.CodecProcessor(model, fused_quantizer=True)
+    fold_proc = port.CodecProcessor(folded, fused_quantizer=True)
+    a = live_proc.compress(agree_sig, win_duration=WINDOW_S, level=1.0)
+    b = fold_proc.compress(agree_sig, win_duration=WINDOW_S, level=1.0)
+    assert np.array_equal(a.codes, b.codes), "folded codes differ"
+    assert np.array_equal(a.vbr_counts, b.vbr_counts), "folded counts differ"
+    assert np.array_equal(live_proc.decompress(a).audio_data,
+                          fold_proc.decompress(a).audio_data), "folded audio differs"
+
+    profiles = {
+        "fast": fast.make_inference_model(model),
+        "turbo": fast.make_serving_model(model),
+        "bf16_exact": fast.make_inference_model(model, snake_approx=False),
+    }
+    signal = serve_clip(model)
+    runs = {name: serve(m, signal) for name, m in profiles.items()}
+    for name, run in runs.items():
+        assert np.isfinite(run["out"].audio_data).all(), name
+    # the fast profile's codes are the live encoder's; its decode of the
+    # serve phase's codes against the live decode
+    assert np.array_equal(runs["fast"]["dac"].codes, serve_dac.codes)
+    exact_audio = live_proc.decompress(serve_dac).audio_data
+    fast_audio = runs["fast"]["proc"].decompress(serve_dac).audio_data
+    fast_db = si_sdr(fast_audio, exact_audio)
+    assert fast_db >= MIN_FAST_DB, fast_db
+
+    # every mode at every shape any profile gives the kernel (errors only),
+    # then each mode timed at the census of its path
+    shapes = sorted({s for run in runs.values() for _, s in run["census"]}
+                    | set(census))
+    modes = ("snake", *MODE_PATHS)
+    with torch.inference_mode():
+        errors = {mode: max(snake_check(s, gen, mode, timed=False)["max_abs_err"]
+                            for s in shapes) for mode in modes}
+        rows = {}
+        for mode, path in MODE_PATHS.items():
+            mode_census = of_mode(runs[path]["census"], mode)
+            checks = [snake_check(s, gen, mode) for s in sorted(mode_census)]
+            rows[mode] = {**census_row(checks, mode_census),
+                          "launches": runs[path]["launches"][mode],
+                          "path": path}
+
+    gate = fast.turbo_gate(model, clips=fast.synthetic_probe(sr, SEED))
+    phase("fast", folded_codes_equal=True, folded_audio_equal=True,
+          fast_decode_si_sdr_db=fast_db, census_shapes=len(shapes),
+          max_abs_err_by_mode=errors, snake_by_mode=rows,
+          profiles={name: {k: run[k] for k in (
+              "encode_rtf", "decode_rtf", "launches", "dac_bytes")}
+              for name, run in runs.items()},
+          turbo_gate={k: v for k, v in gate.__dict__.items()})
+    return rows, errors
+
+
+def pool_phase(model, gen):
+    """8 live streams in 1 s pushes through one StreamPool and DecoderPool,
+    against the same streams one window at a time."""
+    sr = model.sample_rate
+    streams = {f"s{i}": port.synthetic_clip(POOL_CLIP_S, sr, SEED + 10 + i)[0, 0]
+               for i in range(POOL_STREAMS)}
+    proc = port.CodecProcessor(model, fused_quantizer=True)
+    block = sr  # 1 s pushes
+
+    def encode_all():
+        pool = streaming.StreamPool(proc, win_duration=WINDOW_S, level=1.0,
+                                    max_batch=POOL_STREAMS)
+        for sid in streams:
+            pool.add_stream(sid)
+        chunks, batches = [], []
+        for start in range(0, int(POOL_CLIP_S * sr), block):
+            for sid, x in streams.items():
+                pool.push(sid, x[start: start + block])
+            batches.append(len(pool._pending))
+            chunks += pool.poll()
+        for sid in streams:
+            pool.flush(sid)
+        batches.append(len(pool._pending))
+        chunks += pool.poll()
+        return chunks, batches
+
+    def decode_all(chunks):
+        dp = streaming.DecoderPool(proc, win_duration=WINDOW_S,
+                                   max_batch=POOL_STREAMS)
+        out = []
+        for i in range(0, len(chunks), POOL_STREAMS):
+            for sid, codes, counts in chunks[i: i + POOL_STREAMS]:
+                dp.push(sid, codes, counts)
+            out += dp.poll()
+        return out
+
+    # warm-up (the batch shapes' conv plans) and the census of the Snake
+    # kernel's (mode, shape) -> launches of one round trip
+    with kt.snake_census(proc.model_nopad, by_mode=True) as census:
+        decode_all(encode_all()[0])
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    chunks, batches = encode_all()
+    t1 = time.perf_counter()
+    enc_launches = dict(build.LAUNCHES)
+    build.LAUNCHES.clear()
+    t2 = time.perf_counter()
+    audio = decode_all(chunks)
+    t3 = time.perf_counter()
+    dec_launches = dict(build.LAUNCHES)
+    windows = len(chunks)
+    assert windows == len(audio) and enc_launches.get("rvq", 0) > 0
+
+    # every kernel of one more round trip, from the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_all(encode_all()[0])
+        torch.cuda.synchronize()
+    device_kernels = sum(1 for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    # the same windows one at a time (batch 1): codes, margins, decode
+    rvq = proc.prepared_rvq()
+    weights = rvq.weights
+    by_stream = {sid: [(c, n) for s, c, n in chunks if s == sid] for sid in streams}
+    single, margins, single_audio = {}, {}, {}
+    window, hop, _, delay = proc.window_geometry(WINDOW_S)
+    with torch.inference_mode():
+        for sid, x in streams.items():
+            wb = streaming._WindowBuffer(window, hop, delay)
+            codes, mins = [], []
+            for w in wb.push(x) + wb.flush():
+                z = proc.model_nopad.encoder(proc.put_batch(w[None, None]))
+                frames = z.transpose(1, 2).reshape(-1, z.shape[1])
+                codes.append(rvq_ops.quantize_fused(rvq, z)[1][0].cpu().numpy())
+                mins.append(rvq_ops.reference_margins(frames, *weights).cpu().numpy())
+            single[sid], margins[sid] = codes, mins
+            dec = streaming.StreamingDecoder(proc, win_duration=WINDOW_S)
+            single_audio[sid] = [a for c, n in by_stream[sid] for a in dec.push(c, n)]
+    pooled = np.concatenate([c for sid in streams for c, _ in by_stream[sid]], -1)
+    alone = np.concatenate([c for sid in streams for c in single[sid]], -1)
+    near = np.concatenate([m for sid in streams for m in margins[sid]]) <= TIE_MARGIN
+    split = flips(pooled[None], alone[None], near[None])
+    assert split["flipped_off_tie"] == 0, f"pool codes differ off near ties: {split}"
+    pool_audio = {sid: np.concatenate([a for s, a in audio if s == sid])
+                  for sid in streams}
+    decode_db = min(si_sdr(pool_audio[sid][None],
+                           np.concatenate(single_audio[sid])[None])
+                    for sid in streams)
+    assert decode_db >= MIN_POOL_DECODE_DB, decode_db
+
+    seconds = POOL_STREAMS * POOL_CLIP_S
+
+    def k2(launches):
+        return sum(n for k, n in launches.items() if k.startswith("snake"))
+
+    # K2 at every pooled shape (batch > 1): timed in the mode the pool ran,
+    # every mode's error on the same shapes
+    census_modes = {m for m, _ in census}
+    for mode in census_modes:
+        assert enc_launches.get(mode, 0) + dec_launches.get(mode, 0) == sum(
+            n for (m, _), n in census.items() if m == mode), (census, mode)
+    shapes = sorted({s for _, s in census})
+    assert max(s[0] for s in shapes) > 1, shapes
+    with torch.inference_mode():
+        errors = {mode: max(snake_check(s, gen, mode, timed=False)["max_abs_err"]
+                            for s in shapes) for mode in SNAKE_MODES}
+        rows = {}
+        for mode in census_modes:
+            mode_census = of_mode(census, mode)
+            checks = [snake_check(s, gen, mode) for s in sorted(mode_census)]
+            rows[mode] = {**census_row(checks, mode_census),
+                          "launches": enc_launches.get(mode, 0)
+                          + dec_launches.get(mode, 0)}
+
+    phase("pool", streams=POOL_STREAMS, clip_s=POOL_CLIP_S, windows=windows,
+          batches=batches, **split, decode_min_si_sdr_db=decode_db,
+          encode_launches=enc_launches, decode_launches=dec_launches,
+          launches_per_window={
+              "rvq": enc_launches["rvq"] / windows,
+              "snake": (k2(enc_launches) + k2(dec_launches)) / windows,
+              "all_kernels": device_kernels / windows},
+          compress_s=t1 - t0, decompress_s=t3 - t2,
+          compress_rtf=seconds / (t1 - t0), decompress_rtf=seconds / (t3 - t2),
+          census_shapes=len(shapes), max_abs_err_by_mode=errors,
+          snake_by_mode=rows)
+    return enc_launches, chunks, rows
+
+
+def entropy_phase(model, serve_dac, chunks):
+    cfg = model.config
+    with tempfile.TemporaryDirectory() as tmp:
+        path = serve_dac.save(Path(tmp) / "rc.dac", entropy=True,
+                              codebook_size=cfg.codebook_size)
+        packed = serve_dac.save(Path(tmp) / "packed.dac",
+                                codebook_size=cfg.codebook_size)
+        back = port.DACFile.load(path)
+        rc_bytes, packed_bytes = path.stat().st_size, packed.stat().st_size
+    counts = serve_dac.vbr_counts
+    kept = np.arange(cfg.n_codebooks)[None, :, None] < counts[:, None, :]
+    assert np.array_equal(back.vbr_counts, counts)
+    assert np.array_equal(back.codes[kept], serve_dac.codes[kept])
+    # the pool's chunks, stream by stream, as packets
+    packets = 0
+    by_stream = {}
+    for sid, codes, cnt in chunks:
+        by_stream.setdefault(sid, []).append((codes, cnt))
+    for sid, items in by_stream.items():
+        tx = streaming.PacketCodec(cfg.n_codebooks, cfg.codebook_size)
+        rx = streaming.PacketCodec(cfg.n_codebooks, cfg.codebook_size)
+        for codes, cnt in items:
+            packet = tx.pack(codes, cnt)
+            packets += len(packet)
+            got, got_cnt = rx.unpack(packet)
+            keep = np.arange(cfg.n_codebooks)[:, None] < cnt[None, :]
+            assert np.array_equal(got_cnt, cnt) and np.array_equal(got[keep], codes[keep])
+    phase("entropy", dac_bytes_range_coded=rc_bytes, dac_bytes_bit_packed=packed_bytes,
+          stream_chunks=len(chunks), packet_bytes=packets, round_trips_exact=True)
+
+
+def reference_phase(model):
+    fixture = reference.load()
+    out = reference.compute(model)
+    margins = MarginProcessor(model)
+    sr = model.sample_rate
+    margins.compress(port.Signal(reference.clip(sr), sr),
+                     win_duration=reference.WINDOW_S, level=reference.LEVEL)
+    near_tie = np.concatenate(margins.margins, axis=-1) <= TIE_MARGIN
+    codes = out["codes"]
+    split = flips(codes, fixture["codes"].astype(codes.dtype), near_tie)
+    assert split["flipped_off_tie"] == 0, f"codes differ off near ties: {split}"
+    n_q = codes.shape[1]
+    stage = np.arange(n_q)[None, :, None]
+    mask_agree = float(((stage < out["counts"][:, None, :])
+                        == (stage < fixture["counts"][:, None, :])).mean())
+    # the fixture's codes decoded on the card, against the CPU's decode
+    dac = port.DACFile(
+        codes=fixture["codes"].astype(np.int32), vbr_counts=fixture["counts"],
+        chunk_length=int(fixture["chunk_length"]),
+        original_length=int(reference.CLIP_S * sr),
+        input_db=float(fixture["input_db"]), channels=1, sample_rate=sr,
+        padding=False)
+    proc = port.CodecProcessor(model, fused_quantizer=True)
+
+    def decode_db():
+        card = proc.decompress(dac).audio_data[0, 0, : fixture["audio"].size]
+        return si_sdr(card[None], fixture["audio"][None])
+
+    sound_db = decode_db()
+    # the control: the same decode with TF32 convs and matmuls, which the
+    # bar must tell apart from the float32 decode
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_db = decode_db()
+    finally:
+        port.disable_tf32()
+    assert sound_db >= MIN_REFERENCE_DB > tf32_db, (sound_db, tf32_db)
+    phase("reference", fixture=str(reference.FIXTURE.name),
+          frames=int(codes.shape[-1]), **split, mask_agreement=mask_agree,
+          counts_equal=float((out["counts"] == fixture["counts"]).mean()),
+          decode_si_sdr_db=sound_db, min_decode_si_sdr_db=MIN_REFERENCE_DB,
+          tf32_control_decode_si_sdr_db=tf32_db,
+          own_decode_si_sdr_db=si_sdr(out["audio"][None], fixture["audio"][None]))
+
+
+def kernel_row(name, mode_row, **fields):
+    return {"name": name, "route": "cuda", "library_ms": None,
+            "bound_by": "bytes", **fields,
+            **{k: mode_row[k] for k in ("launches", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms")}}
 
 
 def main() -> int:
@@ -263,43 +653,63 @@ def main() -> int:
         snakes = [snake_check(s, gen) for s in kt.SNAKE_ONE_SHOT]
         weights = rvq_ops.stack_quantizer_weights(model.quantizer)
         rvq = rvq_check(weights, gen, RVQ_FRAMES)
-        # the frames of one serve window, as the chunked main path calls K1
+        # the frames of one serve window, as the chunked main path calls K1,
+        # and of a pool batch of 8 windows
         window_frames = port.CodecProcessor(model).window_geometry(WINDOW_S)[2]
         rvq_window = rvq_check(weights, gen, window_frames)
+        rvq_pool = rvq_check(weights, gen, POOL_STREAMS * window_frames)
     w28 = weights_24kbps(gen)
     with torch.inference_mode():
         rvq_28 = [rvq_check(w28, gen, f) for f in (window_frames, RVQ_FRAMES)]
+        rvq_wide = [rvq_shape_check(gen, shape, window_frames)
+                    for shape in RVQ_WIDE_SHAPES]
     phase("kernels", snake=snakes, rvq=rvq, rvq_window=rvq_window,
-          rvq_24kbps=rvq_28)
+          rvq_pool=rvq_pool, rvq_24kbps=rvq_28, rvq_codebook_shapes=rvq_wide)
 
-    launches, census = serve_phase(model)
+    launches, census, serve_dac = serve_phase(model)
     snake_clip = agree_phase(model, census, gen)
+    snake_modes, mode_errors = fast_phase(model, serve_dac, census, gen)
+    pool_launches, chunks, pool_snake = pool_phase(model, gen)
+    entropy_phase(model, serve_dac, chunks)
+    reference_phase(model)
 
-    # K2 summed over one clip's census; K1 at one window, the one-shot sizes
-    # beside each
+    source = {"source": "vrvq_tpu_torch/kernels/csrc/snake.cu",
+              "replaces": "vrvq_tpu/ops/snake.py:33"}
+    snake_rows = [kernel_row(
+        "snake", {**snake_clip, "launches": launches["snake"],
+                  "max_abs_err": max(mode_errors["snake"], snake_clip["max_abs_err"],
+                                     *(c["max_abs_err"] for c in snakes))},
+        per=f"exact float32, 10 s clip: {launches['snake']} launches over "
+            f"{len(census)} shapes", **source,
+        one_shot=[{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+                  for c in snakes])]
+    for mode, row in snake_modes.items():
+        snake_rows.append(kernel_row(
+            mode, {**row, "max_abs_err": max(row["max_abs_err"], mode_errors[mode])},
+            per=f"{row['path']} profile, 10 s clip: {row['launches']} launches "
+                f"over {row['shapes']} shapes", **source))
+    for mode, row in pool_snake.items():
+        snake_rows.append(kernel_row(
+            f"{mode}_pool", row,
+            per=f"pool, 8 streams x 10 s: {row['launches']} launches over "
+                f"{row['shapes']} shapes", **source))
+    rvq_source = {"source": "vrvq_tpu_torch/kernels/csrc/rvq.cu",
+                  "replaces": "vrvq_tpu/ops/rvq_kernel.py:130"}
+    rvq_err = max(c["max_abs_err"] for c in [rvq, rvq_window, rvq_pool, *rvq_28])
     kernels = [
-        {"name": "snake", "route": "cuda",
-         "source": "vrvq_tpu_torch/kernels/csrc/snake.cu",
-         "replaces": "vrvq_tpu/ops/snake.py:33",
-         "launches": launches["snake"],
-         "max_abs_err": max(snake_clip["max_abs_err"],
-                            *(c["max_abs_err"] for c in snakes)),
-         "ms": snake_clip["ms"], "plain_ms": snake_clip["plain_ms"],
-         "bound_ms": snake_clip["bound_ms"], "bound_by": "bytes",
-         "library_ms": None,
-         "per": f"10 s clip: {launches['snake']} launches over "
-                f"{len(census)} shapes",
-         "one_shot": [{k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
-                      for c in snakes]},
-        {"name": "fused_rvq", "route": "cuda",
-         "source": "vrvq_tpu_torch/kernels/csrc/rvq.cu",
-         "replaces": "vrvq_tpu/ops/rvq_kernel.py:130",
-         "launches": launches["rvq"],
-         "max_abs_err": max(c["max_abs_err"] for c in [rvq, rvq_window, *rvq_28]),
+        *snake_rows,
+        {"name": "fused_rvq", "route": "cuda", **rvq_source,
+         "launches": launches["rvq"], "max_abs_err": rvq_err,
          "ms": rvq_window["ms"], "plain_ms": rvq_window["plain_ms"],
          "bound_ms": rvq_window["bound_ms"], "bound_by": rvq_window["bound_by"],
          "library_ms": None, "per": f"launch at {rvq_window['frames']} frames",
          "one_shot": {k: rvq[k] for k in ("frames", "ms", "plain_ms", "bound_ms")}},
+        {"name": "fused_rvq_pool", "route": "cuda", **rvq_source,
+         "launches": pool_launches["rvq"], "max_abs_err": rvq_err,
+         "ms": rvq_pool["ms"], "plain_ms": rvq_pool["plain_ms"],
+         "bound_ms": rvq_pool["bound_ms"], "bound_by": rvq_pool["bound_by"],
+         "library_ms": None,
+         "per": f"launch at {rvq_pool['frames']} frames (a pool batch of 8)"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -113,11 +113,16 @@ def test_dac_bytes_identical_for_same_codes(tmp_path, vbr, compact):
 
 
 def test_entropy_format_raises(tmp_path):
-    f = tcodec.DACFile(codes=np.zeros((1, 2, 4), np.int32), chunk_length=4,
-                       original_length=2048, input_db=-20.0, channels=1,
-                       sample_rate=44100, padding=True)
-    with pytest.raises(NotImplementedError, match="rangecoder"):
-        f.save(tmp_path / "x.dac", entropy=True)
+    """The range-coded format (ported now) refuses a code outside the
+    alphabet it is given, as the JAX package's does."""
+    codes = np.zeros((1, 2, 4), np.int32)
+    codes[0, 1, 2] = 5
+    meta = dict(chunk_length=4, original_length=2048, input_db=-20.0,
+                channels=1, sample_rate=44100, padding=True)
+    for package in (tcodec, jcodec):
+        f = package.DACFile(codes=codes, **meta)
+        with pytest.raises(ValueError, match="symbol out of range"):
+            f.save(tmp_path / "x.dac", entropy=True, codebook_size=4)
 
 
 @pytest.mark.parametrize("bits", [1, 4, 10, 13])
@@ -141,8 +146,9 @@ def test_signal_loudness_and_wav_roundtrip(tmp_path):
     np.testing.assert_allclose(back.audio_data[0, 0], x, atol=1.0 / 32767)
     np.testing.assert_array_equal(
         back.audio_data, JaxSignal.load(path).audio_data)
-    with pytest.raises(NotImplementedError, match="resampling"):
-        tsig.resample(16000)
+    # resampling (ported now) gives the JAX package's samples
+    np.testing.assert_array_equal(tsig.clone().resample(16000).audio_data,
+                                  np.asarray(jsig.clone().resample(16000).audio_data))
 
 
 def test_fused_compress_follows_parameter_changes():
@@ -185,8 +191,14 @@ BLOCKER = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block)
     import vrvq_tpu_torch
+    walked = set()
     for mod in pkgutil.walk_packages(vrvq_tpu_torch.__path__, "vrvq_tpu_torch."):
         importlib.import_module(mod.name)
+        walked.add(mod.name)
+    serving = {"vrvq_tpu_torch." + m for m in (
+        "nn.fold", "infer.fast", "infer.chunked", "infer.streaming",
+        "infer.sweep", "ops.rangecoder", "ops.resample", "metrics")}
+    assert serving <= walked, sorted(serving - walked)
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

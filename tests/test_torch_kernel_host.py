@@ -10,8 +10,10 @@
   reduced in rank order with the lowest index on ties, the code's row taken
   from its owner's slice) on the packed blocks gives the JAX ``fused_rvq``'s
   codes (interpret mode) off near ties (top-2 margin > 1e-5) and its z_q
-  within 1e-5 on the frames that agree; duplicated codebook rows in two CTAs'
-  slices resolve to the lower index, as argmax does.
+  within 1e-5 on the frames that agree, at the flagship's shapes and at
+  shapes the packing pads (d not a power of two, D and K not split into
+  slices of a multiple of 4); duplicated codebook rows in two CTAs' slices
+  resolve to the lower index, as argmax does.
 """
 
 import numpy as np
@@ -24,6 +26,8 @@ from vrvq_tpu.ops import rvq_kernel as jrvq
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.kernel_times import snake_census
 from vrvq_tpu_torch.ops import rvq_kernel as trvq
+
+torch.set_num_threads(1)  # as tests/test_torch_support.py sets it
 
 ZQ_TOL = 1e-5
 TIE_MARGIN = 1e-5
@@ -61,7 +65,8 @@ def test_snake_census_of_one_window(window_census, part, per_window):
 
 @pytest.mark.parametrize("d_model,k,expected", [
     (1024, 1024, 8), (256, 128, 8), (256, 64, 8), (96, 64, 8), (48, 64, 4),
-    (40, 64, 2), (100, 64, 1), (6, 64, 0)])
+    (40, 64, 2), (100, 64, 1), (6, 64, 1), (1000, 1000, 8), (1000, 1024, 8),
+    (1024, 6, 8), (6, 6, 1), (200, 300, 4)])
 def test_cluster_size(d_model, k, expected):
     assert trvq.cluster_size(d_model, k) == expected
 
@@ -80,20 +85,23 @@ def _weights(rng, nq, dim, k, d):
 
 def emulate_cluster(z, prepared, mask=None):
     """The kernel's algorithm on the packed blocks, one CTA slice at a time,
-    in plain PyTorch. Returns (z_q, codes)."""
+    in plain PyTorch, at the padded widths. Returns (z_q, codes)."""
     w, cs, packed = prepared
-    n_q, d_model, d = w.wi.shape
-    k = w.cb.shape[1]
-    dc, kc = d_model // cs, k // cs
+    n_q, d_model, _ = w.wi.shape
+    dp_model, kp, d = trvq.padded_dims(d_model, w.cb.shape[1], w.wi.shape[2], cs)
+    dc, kc = dp_model // cs, kp // cs
     f = z.shape[0]
-    res = [z[:, r * dc:(r + 1) * dc].clone() for r in range(cs)]
+    zp = torch.nn.functional.pad(z, (0, dp_model - d_model))
+    res = [zp[:, r * dc:(r + 1) * dc].clone() for r in range(cs)]
     acc = [torch.zeros_like(x) for x in res]
     codes = torch.zeros(f, n_q, dtype=torch.int32)
     for s in range(n_q):
         blocks = []
         for r in range(cs):
             sizes = [d * dc, d * dc, dc, d * kc, kc, kc * d, d]
-            wi_t, wo, bo, cn_t, cn2, cb, bi = torch.split(packed[s, r], sizes)
+            assert packed.shape[2] == -(-sum(sizes) // 4) * 4
+            wi_t, wo, bo, cn_t, cn2, cb, bi = torch.split(
+                packed[s, r, :sum(sizes)], sizes)
             blocks.append((wi_t.reshape(d, dc), wo.reshape(d, dc), bo,
                            cn_t.reshape(d, kc), cn2, cb.reshape(kc, d), bi))
         e = res[0] @ blocks[0][0].T
@@ -121,19 +129,24 @@ def emulate_cluster(z, prepared, mask=None):
             out = zq_e @ blocks[r][1] + blocks[r][2]
             res[r] = res[r] - out
             acc[r] = acc[r] + out * m
-    return torch.cat(acc, dim=1), codes
+    return torch.cat(acc, dim=1)[:, :d_model], codes
 
 
-@pytest.mark.parametrize("dim,nq,k,d,vbr", [
-    (256, 4, 128, 8, True), (256, 4, 64, 4, False), (1024, 3, 1024, 8, True)],
-    ids=["D256-K128-d8-VBR", "D256-K64-d4-CBR", "D1024-K1024-d8-VBR"])
-def test_packed_cluster_emulation_matches_jax(dim, nq, k, d, vbr):
+@pytest.mark.parametrize("dim,nq,k,d,vbr,cs", [
+    (256, 4, 128, 8, True, 8), (256, 4, 64, 4, False, 8),
+    (1024, 3, 1024, 8, True, 8), (1000, 2, 1000, 16, True, 8),
+    (200, 2, 300, 3, True, 4), (6, 3, 6, 1, False, 1),
+    (64, 2, 40, 2, True, 2), (128, 2, 96, 32, False, 8)],
+    ids=["D256-K128-d8-VBR", "D256-K64-d4-CBR", "D1024-K1024-d8-VBR",
+         "D1000-K1000-d16-VBR", "D200-K300-d3-VBR", "D6-K6-d1-CBR",
+         "D64-K40-d2-VBR", "D128-K96-d32-CBR"])
+def test_packed_cluster_emulation_matches_jax(dim, nq, k, d, vbr, cs):
     rng = np.random.RandomState(dim + k)
     w = _weights(rng, nq, dim, k, d)
     z = rng.randn(45, dim).astype(np.float32)  # 45: no multiple of a tile
     mask = (rng.rand(45, nq) > 0.4).astype(np.float32) if vbr else None
     prepared = trvq.prepare_rvq(w)
-    assert prepared.cluster == 8
+    assert prepared.cluster == cs
     tmask = torch.from_numpy(mask) if vbr else None
     zq, codes = emulate_cluster(torch.from_numpy(z), prepared, tmask)
     k_zq, k_codes = jrvq.fused_rvq(

@@ -136,3 +136,34 @@ def test_cuda_request_without_cuda_raises():
         port.resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.build_model(port.small_config())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("dim,k", [(1000, 6), (6, 1000), (6, 6)],
+                         ids=["D1000-K6", "D6-K1000", "D6-K6"])
+def test_fused_reference_matches_jax_kernel_at_every_codebook_shape(dim, k, d):
+    """K1's plain version against the JAX kernel (interpret mode) at the
+    codebook shapes the port's kernel pads, VBR: codes identical off near
+    ties (top-2 margin <= 1e-5: at d = 2 a thousand codes crowd the unit
+    circle, and XLA and PyTorch sum e in another order), z_q within 1e-5 on
+    the frames that agree."""
+    rng = np.random.RandomState(dim + k + d)
+    nq, frames = 2, 17
+    w = [(rng.uniform(-1, 1, (nq, dim, d)) / np.sqrt(dim)).astype(np.float32),
+         (0.1 * rng.randn(nq, d)).astype(np.float32),
+         (rng.uniform(-1, 1, (nq, d, dim)) / np.sqrt(d)).astype(np.float32),
+         (0.1 * rng.randn(nq, dim)).astype(np.float32),
+         rng.randn(nq, k, d).astype(np.float32)]
+    z = rng.randn(frames, dim).astype(np.float32)
+    mask = (rng.rand(frames, nq) > 0.4).astype(np.float32)
+    k_zq, k_codes = jrvq.fused_rvq(jnp.asarray(z), *map(jnp.asarray, w),
+                                   jnp.asarray(mask), interpret=True)
+    zq, codes = trvq.fused_rvq(torch.from_numpy(z), *map(torch.from_numpy, w),
+                               torch.from_numpy(mask))
+    near_tie = (trvq.reference_margins(torch.from_numpy(z),
+                                       *map(torch.from_numpy, w)) <= 1e-5).numpy()
+    agree = (codes.numpy() == np.asarray(k_codes)).all(axis=1)
+    assert not (~agree & ~near_tie).any()
+    assert agree.mean() > 0.9
+    np.testing.assert_allclose(zq.numpy()[agree], np.asarray(k_zq)[agree],
+                               rtol=ZQ_TOL, atol=ZQ_TOL)

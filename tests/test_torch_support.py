@@ -27,6 +27,11 @@ JAX_CFG = dict(
 )
 PORT_CFG = port.small_config()
 
+# The suite runs in several worker processes on one machine: a torch process
+# per worker with a thread per core made the port's tests ~10x slower than
+# alone, and one thread a process gives the same results.
+torch.set_num_threads(1)
+
 
 def jitter(params, seed: int):
     """Seeded perturbation of a flax parameter tree (numpy leaves)."""

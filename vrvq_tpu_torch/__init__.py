@@ -2,9 +2,12 @@
 
 Serving path: ``build_model`` -> ``CodecProcessor(model,
 fused_quantizer=True).compress(...)`` -> ``DACFile.save/load`` ->
-``decompress(...)``. The Snake activation and the fused residual VQ run as
-hand-written CUDA kernels on the card (``kernels/csrc``); on the CPU, which
-the tests use, their plain PyTorch versions run instead.
+``decompress(...)``; the fast and turbo profiles in ``infer/fast.py``,
+chunked, streaming and pooled serving in ``infer/chunked.py`` and
+``infer/streaming.py``, the level sweep in ``infer/sweep.py``. The Snake
+activation and the fused residual VQ run as hand-written CUDA kernels on the
+card (``kernels/csrc``); on the CPU, which the tests use, their plain
+PyTorch versions run instead.
 
 Entry points run on the card unless the caller asks for ``device="cpu"``;
 without CUDA they raise rather than fall back.

@@ -4,8 +4,8 @@ Counterpart of the part of ``vrvq_tpu/audio.py`` that ``compress`` and
 ``decompress`` touch: ``audio_data`` is a numpy ``(B, C, T)`` array, loudness
 is the BS.1770 meter of ``ops/loudness.py``, and the gain arithmetic is the
 JAX package's line for line, so both packages hand the codec the same
-samples. Wav files go through ``scipy.io.wavfile``. Resampling is not ported:
-``resample`` accepts only the signal's own rate.
+samples. Wav files go through ``scipy.io.wavfile``; ``resample`` through
+scipy's polyphase filter (``ops/resample.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from .ops.loudness import integrated_loudness
+from .ops.resample import resample_poly_np
 
 GAIN_FACTOR = np.log(10) / 20
 """Multiply gain in dB by this to get the natural-log gain factor."""
@@ -44,11 +45,11 @@ class Signal:
         return Signal(np.array(self.audio_data), self.sample_rate)
 
     def resample(self, sample_rate: int) -> "Signal":
-        if sample_rate != self.sample_rate:
-            raise NotImplementedError(
-                f"resampling {self.sample_rate} -> {sample_rate} Hz is not "
-                "ported yet; give audio at the model's rate"
-            )
+        if sample_rate == self.sample_rate:
+            return self
+        self.audio_data = resample_poly_np(
+            np.asarray(self.audio_data), self.sample_rate, sample_rate)
+        self.sample_rate = int(sample_rate)
         return self
 
     def loudness(self, block_size: float = 0.4) -> np.ndarray:

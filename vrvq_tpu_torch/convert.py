@@ -12,6 +12,10 @@ flax path ``encoder/block_0/res0/conv1/v`` is the port's state-dict key
   * ``g``, ``bias``, Snake ``alpha`` and ``codebook`` are unchanged; ``g``
     follows its layer's grouping (per out-channel, per IN-channel for a
     transposed conv).
+
+A folded tree (``vrvq_tpu.infer.fast.make_inference_model``) converts too:
+its ``w`` takes ``v``'s layout change, and a bfloat16 leaf stays bfloat16,
+for the port's folded modules (``nn/fold.py``).
 """
 
 from __future__ import annotations
@@ -38,17 +42,27 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    """float32, or bfloat16 for a bfloat16 leaf (numpy has no such dtype of
+    its own: the leaf's bits are taken as they are)."""
+    if value.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(value).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(value, np.float32))
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``DAC_VRVQ``'s parameter tree (numpy leaves, with or without
-    the top-level ``params`` key) -> the port's ``state_dict``."""
+    the top-level ``params`` key), live or folded -> the port's
+    ``state_dict``."""
     tree = params.get("params", params)
     sd = {}
     for key, value in _flatten(tree).items():
         parts = key.split(".")
         transposed_conv = parts[-2:-1] == ["up"]
-        if parts[-1] == "v" and value.ndim == 3 and not transposed_conv:
+        if parts[-1] in ("v", "w") and value.ndim == 3 and not transposed_conv:
             value = np.transpose(value, (2, 1, 0))  # (k, in, out) -> (out, in, k)
-        sd[key] = torch.tensor(np.ascontiguousarray(value, np.float32))
+        sd[key] = _tensor(value)
     return sd
 
 

@@ -17,9 +17,16 @@ VBR: with ``level`` the per-frame codebook counts go into the ``.dac``
 ``fused_quantizer=True`` encodes through the fused RVQ kernel
 (``ops/rvq_kernel.py``): encoder, importance subnet, counts, then all Nq
 stages in one launch. Its weights are stacked and prepared once per
-``compress`` call, from the model's parameters as they are then. PyTorch runs eagerly, so the JAX version's jitted
-programs and dispatch-ahead queues are plain calls and loops here; there is
-no mesh. Everything runs under ``torch.inference_mode()``, with TF32 off.
+``compress`` call (once per stream object in ``infer/streaming.py``), from
+the model's parameters as they are then.
+
+PyTorch runs eagerly, so the JAX version's jitted programs are plain calls
+here; there is one card, so no mesh. As in the JAX version, the windowed
+paths dispatch every window before they fetch any result: the signal goes to
+the device in one copy (``put_batch``), each window's work is queued on the
+card, and the results come back in one copy at the end, so the host never
+waits for the card between windows. Everything runs under
+``torch.inference_mode()``, with TF32 off.
 """
 
 from __future__ import annotations
@@ -81,6 +88,17 @@ class CodecProcessor:
         return torch.sum(
             generate_mask_hard(imp_map * level * n_q, n_q), dim=1
         ).to(torch.uint8)
+
+    def prepared_rvq(self):
+        """The quantizer's weights prepared for the fused kernel, from the
+        parameters as they are now; ``None`` without ``fused_quantizer``."""
+        if not self.fused_quantizer:
+            return None
+        return prepare_rvq(stack_quantizer_weights(self.model.quantizer))
+
+    def put_batch(self, x: np.ndarray) -> torch.Tensor:
+        """A host batch on the model's device, in one copy."""
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     # ---------------------------------------------------------- geometry
     def window_geometry(self, win_duration: float):
@@ -154,40 +172,36 @@ class CodecProcessor:
 
         vbr = n_quantizers is None and level is not None
         lv = level if level is not None else 1.0
-        rvq = None
-        if self.fused_quantizer:
-            rvq = prepare_rvq(stack_quantizer_weights(model.quantizer))
+        rvq = self.prepared_rvq()
 
         if signal.signal_duration <= win_duration:
             # one shot through the padded codec
             padding = True
             right_pad = math.ceil(nt / model.hop_length) * model.hop_length - nt
             x = np.pad(data, ((0, 0), (0, 0), (0, right_pad)))
-            codes, counts = self._encode(model, self._to_device(x),
+            codes, counts = self._encode(model, self.put_batch(x),
                                          n_quantizers, lv, rvq)
-            codes = codes.cpu().numpy()
-            counts = counts.cpu().numpy() if vbr else None
-            chunk_length = codes.shape[-1]
+            codes_list, counts_list = [codes], [counts]
         else:
-            # padding-free codec on windows, the ends padded by the delay
+            # padding-free codec on windows, the ends padded by the delay and
+            # the last window by zeros: the whole signal in one copy, every
+            # window queued on the device before any result is fetched
             padding = False
             n_samples, hop, _, delay = self.window_geometry(win_duration)
-            data = np.pad(data, ((0, 0), (0, 0), (delay, delay)))
+            starts = range(0, nt, hop)
+            tail = starts[-1] + n_samples - (nt + 2 * delay)
+            data = self.put_batch(np.pad(
+                data, ((0, 0), (0, 0), (delay, delay + max(tail, 0)))))
             codes_list, counts_list = [], []
-            for i in range(0, nt, hop):
-                x = data[..., i: i + n_samples]
-                pad = n_samples - x.shape[-1]
-                if pad > 0:
-                    x = np.pad(x, ((0, 0), (0, 0), (0, pad)))
+            for i in starts:
                 codes_i, counts_i = self._encode(
-                    self.model_nopad, self._to_device(x), n_quantizers, lv, rvq
-                )
-                codes_list.append(codes_i.cpu().numpy())
-                if vbr:
-                    counts_list.append(counts_i.cpu().numpy())
-            chunk_length = codes_list[0].shape[-1]
-            codes = np.concatenate(codes_list, axis=-1)
-            counts = np.concatenate(counts_list, axis=-1) if vbr else None
+                    self.model_nopad, data[..., i: i + n_samples],
+                    n_quantizers, lv, rvq)
+                codes_list.append(codes_i)
+                counts_list.append(counts_i)
+        chunk_length = codes_list[0].shape[-1]
+        codes = torch.cat(codes_list, dim=-1).cpu().numpy()
+        counts = torch.cat(counts_list, dim=-1).cpu().numpy() if vbr else None
 
         return DACFile(
             codes=np.ascontiguousarray(codes, np.int32),
@@ -199,9 +213,6 @@ class CodecProcessor:
             padding=padding,
             vbr_counts=counts,
         )
-
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     # ---------------------------------------------------------- decompress
     def decompress(self, obj: Union[str, Path, DACFile]) -> Signal:
@@ -219,28 +230,25 @@ class CodecProcessor:
         chunk_length = obj.chunk_length
         variant = self.model if obj.padding else self.model_nopad
 
-        n_q = codes.shape[1]
-        parts = []
-        for i in range(0, codes.shape[-1], chunk_length):
-            c = codes[..., i: i + chunk_length]
-            if c.shape[-1] < chunk_length:
-                c = np.pad(c, ((0, 0), (0, 0), (0, chunk_length - c.shape[-1])))
-            if obj.vbr_counts is not None:
-                counts = obj.vbr_counts[..., i: i + chunk_length]
-                if counts.shape[-1] < chunk_length:
-                    counts = np.pad(
-                        counts, ((0, 0), (0, chunk_length - counts.shape[-1]))
-                    )
-                stage = np.arange(n_q).reshape(1, n_q, 1)
-                mask = (stage < counts[:, None, :]).astype(np.float32)
-            else:
-                mask = np.ones((c.shape[0], n_q, chunk_length), np.float32)
-            audio = variant.decode_from_codes(
-                self._to_device(c).long(), self._to_device(mask)
-            )
-            parts.append(audio.cpu().numpy())
-
-        audio = np.concatenate(parts, axis=-1)
+        # the codes and the stage mask of every chunk, the last one padded to
+        # a whole chunk, in one copy each; every chunk queued on the device
+        # before the audio is fetched
+        _, n_q, frames = codes.shape
+        pad = -frames % chunk_length
+        codes = np.pad(codes, ((0, 0), (0, 0), (0, pad)))
+        if obj.vbr_counts is not None:
+            counts = np.pad(np.asarray(obj.vbr_counts), ((0, 0), (0, pad)))
+            stage = np.arange(n_q).reshape(1, n_q, 1)
+            mask = (stage < counts[:, None, :]).astype(np.float32)
+        else:
+            mask = np.ones(codes.shape, np.float32)
+        codes, mask = self.put_batch(codes).long(), self.put_batch(mask)
+        parts = [
+            variant.decode_from_codes(codes[..., i: i + chunk_length],
+                                      mask[..., i: i + chunk_length])
+            for i in range(0, frames, chunk_length)
+        ]
+        audio = torch.cat(parts, dim=-1).cpu().numpy()
         out = Signal(audio, model.sample_rate)
         out.normalize(obj.input_db)
         out.resample(obj.sample_rate)

@@ -8,8 +8,9 @@
     (shape -> launches);
   * times K2 (Snake) at every census shape, summed over one clip with each
     shape weighted by its launches, and at the one-shot shapes; K1 (fused
-    RVQ) at 72 frames (one 1 s window) and at 862 (the 10 s clip in one
-    shot); each beside its bound and its plain version's time;
+    RVQ) at 72 frames (one 1 s window), 576 (eight windows of a
+    ``StreamPool`` batch) and 862 (the 10 s clip in one shot); each beside
+    its bound and its plain version's time;
   * with ``--baseline DIR``, also loads the ``vrvq_tpu_torch`` package of
     another checkout in DIR (say the parent commit, unpacked there with
     ``git archive``) under another name, builds its kernels, and times the
@@ -42,7 +43,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SNAKE_ONE_SHOT = [(1, 96, 441344), (1, 1536, 862)]  # decoder tail, head
-RVQ_FRAMES = (72, 862)  # one 1 s window; a 10 s clip in one shot
+RVQ_FRAMES = (72, 576, 862)  # one 1 s window; a pool batch of 8; 10 s at once
 CLIP_S = 10.0
 WINDOW_S = 1.0
 CALLS = 40  # launches in one timed graph
@@ -61,10 +62,11 @@ def bound(n_bytes: float, n_flops: float) -> dict:
             "bytes_ms": t_bytes, "flops_ms": t_ops}
 
 
-def snake_bound(shape) -> dict:
-    """x read, alpha read, y written; ~5 operations and a sin per element."""
+def snake_bound(shape, itemsize: int = 4) -> dict:
+    """x read, alpha (float32) read, y written, ``itemsize`` bytes an
+    element; ~5 operations and a sin (or its polynomial) per element."""
     n = math.prod(shape)
-    return bound(4.0 * (2 * n + shape[1]), 5.0 * n)
+    return bound(itemsize * 2.0 * n + 4.0 * shape[1], 5.0 * n)
 
 
 def rvq_bound(frames: int, n_q: int, d_model: int, d_code: int, k: int) -> dict:
@@ -78,15 +80,21 @@ def rvq_bound(frames: int, n_q: int, d_model: int, d_code: int, k: int) -> dict:
 
 
 @contextlib.contextmanager
-def snake_census(*models):
+def snake_census(*models, by_mode: bool = False):
     """While open, counts the input shapes of every ``Snake1d`` call in
-    ``models``: yields a Counter of shape -> calls."""
+    ``models``: yields a Counter of shape -> calls, or with ``by_mode`` of
+    (mode, shape) -> calls, the mode named as ``ops.snake.mode_name``."""
     from .nn.layers import Snake1d
+    from .ops.snake import mode_name
 
     census = collections.Counter()
 
-    def count(_, args):
-        census[tuple(args[0].shape)] += 1
+    def count(module, args):
+        shape = tuple(args[0].shape)
+        if by_mode:
+            census[mode_name(args[0].dtype, module.approx), shape] += 1
+        else:
+            census[shape] += 1
 
     hooks = [m.register_forward_pre_hook(count)
              for model in models for m in model.modules()
@@ -139,23 +147,39 @@ def device_ms(fn, args=()) -> float:
     return (statistics.median(replays[1]) - statistics.median(replays[0])) / CALLS
 
 
-def snake_inputs(shape, gen):
-    """x (3 N(0, 1)) and alpha (0.5 + U(0, 1)) on the card, from ``gen``."""
-    x = (3.0 * torch.randn(shape, generator=gen)).to(DEVICE)
+def snake_inputs(shape, gen, dtype=torch.float32):
+    """x (3 N(0, 1), in ``dtype``) and alpha (0.5 + U(0, 1), float32) on the
+    card, from ``gen``."""
+    x = (3.0 * torch.randn(shape, generator=gen)).to(DEVICE, dtype)
     alpha = (0.5 + torch.rand(shape[1], generator=gen)).to(DEVICE)
     return x, alpha
 
 
-def time_snake(snake_mod, x, alpha, plain: bool = True) -> dict:
-    """K2 of ``snake_mod`` (an ``ops.snake`` module) on ``x``, ``alpha``: its
-    largest difference from the plain version on these inputs, its device
-    time, the plain version's when ``plain``, and the bound."""
-    err = (snake_mod.snake(x, alpha)
-           - snake_mod.snake_reference(x, alpha)).abs().max().item()
+def snake_fns(snake_mod, approx: bool = False):
+    """(kernel, plain) of a mode of ``snake_mod`` (an ``ops.snake`` module),
+    each taking (x, alpha); the exact mode by the names every version of
+    the module has."""
+    if not approx:
+        return snake_mod.snake, snake_mod.snake_reference
+    return ((lambda x, a: snake_mod.snake(x, a, True)),
+            snake_mod.snake_approx_reference)
+
+
+def time_snake(snake_mod, x, alpha, plain: bool = True,
+               approx: bool = False, timed: bool = True) -> dict:
+    """K2 of ``snake_mod`` (an ``ops.snake`` module) on ``x``, ``alpha`` in
+    the mode of ``approx`` and ``x``'s dtype: its largest difference from
+    the plain version on these inputs, its device time (with ``timed``),
+    the plain version's when ``plain``, and the bound."""
+    kernel, reference = snake_fns(snake_mod, approx)
+    err = (kernel(x, alpha).float()
+           - reference(x, alpha).float()).abs().max().item()
     out = {"shape": list(x.shape), "max_abs_err": err,
-           "ms": device_ms(snake_mod.snake, (x, alpha)), **snake_bound(x.shape)}
-    if plain:
-        out["plain_ms"] = device_ms(snake_mod.snake_reference, (x, alpha))
+           **snake_bound(x.shape, x.element_size())}
+    if timed:
+        out["ms"] = device_ms(kernel, (x, alpha))
+        if plain:
+            out["plain_ms"] = device_ms(reference, (x, alpha))
     return out
 
 

@@ -39,11 +39,11 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "vrvq_snake_forward": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-         _P],
+         ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
     "vrvq_rvq_forward": (
-        [_P] * 5 + [ctypes.c_int] * 6 + [_P],
+        [_P] * 5 + [ctypes.c_int] * 7 + [_P],
         ctypes.c_int,
     ),
     "vrvq_rvq_stage_floats": ([ctypes.c_int] * 4, ctypes.c_int),

@@ -67,6 +67,16 @@
 // the compiler from contracting them); only the summation order of the two
 // projections differs from the plain version's matmuls. The ragged last tile
 // runs on zeros and is never stored.
+//
+// Shapes. Any codebook_dim d from 1 to 32, any D and K. The kernel is built
+// for d in {1, 2, 4, 8, 16, 32} (a warp's reduce-scatter halves d at each
+// level); prepare_rvq pads d up to the next of these with zero components,
+// and D and K up to cs slices of a multiple of 4 floats with zero channels
+// and with codes whose |cn|^2 is +inf: a zero component adds exact zeros to
+// every sum, a padded code never wins (its distance is +inf), and padded
+// channels keep a zero residual and are never stored. The kernel reads z and
+// writes z_q at the real width D (with scalar accesses where D is not the
+// padded width) and never stores a padded channel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -91,14 +101,17 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Floats of one (stage, rank) slice as prepare_rvq packs it:
 // wi^T (d, Dc) | wo (d, Dc) | bo (Dc) | cn^T (d, Kc) | |cn|^2 (Kc) |
-// codebook (Kc, d) | bi (d).
+// codebook (Kc, d) | bi (d) | zeros to a multiple of 4 (16-byte copies).
 __host__ __device__ inline int stage_floats(int Dc, int Kc, int DC) {
-  return 2 * DC * Dc + Dc + DC * Kc + Kc + Kc * DC + DC;
+  return (2 * DC * Dc + Dc + DC * Kc + Kc + Kc * DC + DC + 3) / 4 * 4;
 }
 
 // A candidate as a CTA sends it: distance, code (int bits), two floats of
-// padding, the code's un-normalized codebook row; whole float4s.
-__host__ __device__ inline int cand_floats(int DC) { return 4 + DC; }
+// padding, the code's un-normalized codebook row (zero-padded to 4 floats
+// when d < 4); whole float4s.
+__host__ __device__ inline constexpr int cand_floats(int DC) {
+  return 4 + (DC < 4 ? 4 : DC);
+}
 
 __host__ inline size_t smem_bytes(int cs, int Dc, int Kc, int DC, int NQ) {
   return kBarrierBytes +
@@ -179,14 +192,14 @@ template <int DC>
 __global__ void __launch_bounds__(TF * kLanes)
 rvq_kernel(const float* __restrict__ z, const float* __restrict__ packed,
            const float* __restrict__ mask, float* __restrict__ zq,
-           int32_t* __restrict__ codes, int F, int D, int NQ, int K) {
-  constexpr int CF = 4 + DC;  // cand_floats(DC)
+           int32_t* __restrict__ codes, int F, int D, int Dp, int NQ, int Kp) {
+  constexpr int CF = cand_floats(DC);
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int Dc = D / cs;
-  const int Kc = K / cs;
+  const int Dc = Dp / cs;  // this CTA's channels, padding included
+  const int Kc = Kp / cs;
   const int SF = stage_floats(Dc, Kc, DC);
 
   uint64_t* ring_bar = reinterpret_cast<uint64_t*>(smem);  // (kRing,)
@@ -240,19 +253,29 @@ rvq_kernel(const float* __restrict__ z, const float* __restrict__ packed,
       bulk_load(ring + (size_t)s * SF, mine + (size_t)s * cs * SF,
                 SF * sizeof(float), ring_bar + s);
   }
-  // this CTA's channels of z (zeros past F) in float4s, loads unrolled so
-  // that several are in flight; the z_q sum; the mask tile
-  const int q4 = Dc / 4;
+  // this CTA's channels of z (zeros past F and past D) in float4s where D
+  // is the padded width, loads unrolled so that several are in flight, else
+  // one by one; the z_q sum; the mask tile
+  if (D == Dp) {
+    const int q4 = Dc / 4;
 #pragma unroll 4
-  for (int i = tid; i < TF * q4; i += blockDim.x) {
-    const int ff = i / q4;
-    const int c = 4 * (i - ff * q4);
-    const float4 v = ff < nf ? *reinterpret_cast<const float4*>(
-                                   z + (size_t)(f0 + ff) * D + rank * Dc + c)
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    *reinterpret_cast<float4*>(res + ff * Dc + c) = v;
-    *reinterpret_cast<float4*>(acc + ff * Dc + c) =
-        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int i = tid; i < TF * q4; i += blockDim.x) {
+      const int ff = i / q4;
+      const int c = 4 * (i - ff * q4);
+      const float4 v = ff < nf ? *reinterpret_cast<const float4*>(
+                                     z + (size_t)(f0 + ff) * D + rank * Dc + c)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(res + ff * Dc + c) = v;
+      *reinterpret_cast<float4*>(acc + ff * Dc + c) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int i = tid; i < TF * Dc; i += blockDim.x) {
+      const int ff = i / Dc;
+      const int g = rank * Dc + (i - ff * Dc);
+      res[i] = (ff < nf && g < D) ? z[(size_t)(f0 + ff) * D + g] : 0.0f;
+      acc[i] = 0.0f;
+    }
   }
   for (int i = tid; i < TF * NQ; i += blockDim.x)
     mask_s[i] = (mask != nullptr && i < nf * NQ) ? mask[(size_t)f0 * NQ + i]
@@ -370,10 +393,17 @@ rvq_kernel(const float* __restrict__ z, const float* __restrict__ packed,
     if (sub < cs) {  // the candidate, with its row, to every CTA
       send4(cand_to, make_float4(best, __int_as_float(rank * Kc + arg), 0.0f, 0.0f),
             cand_bar_to);
+      if constexpr (DC >= 4) {
 #pragma unroll
-      for (int j = 0; j < DC; j += 4)
-        send4(cand_to + 4 * (4 + j),
-              *reinterpret_cast<const float4*>(cb + arg * DC + j), cand_bar_to);
+        for (int j = 0; j < DC; j += 4)
+          send4(cand_to + 4 * (4 + j),
+                *reinterpret_cast<const float4*>(cb + arg * DC + j), cand_bar_to);
+      } else {
+        const float* row = cb + arg * DC;
+        send4(cand_to + 16,
+              make_float4(row[0], DC == 2 ? row[DC - 1] : 0.0f, 0.0f, 0.0f),
+              cand_bar_to);
+      }
     }
 
     // 5. every CTA's candidate is here: the minimum in rank order, so on
@@ -421,7 +451,8 @@ rvq_kernel(const float* __restrict__ z, const float* __restrict__ packed,
   // store inside the loop); every write into this CTA's shared memory from
   // another CTA came before the last wait, so it may leave
   if (f < nf) {
-    for (int c = sub; c < Dc; c += kLanes)
+    const int real = min(Dc, D - rank * Dc);  // channels past D are padding
+    for (int c = sub; c < real; c += kLanes)
       zq[(size_t)(f0 + f) * D + rank * Dc + c] = acc[f * Dc + c];
     if (rank == 0)
       for (int t = sub; t < NQ; t += kLanes)
@@ -431,9 +462,9 @@ rvq_kernel(const float* __restrict__ z, const float* __restrict__ packed,
 
 template <int DC>
 cudaError_t launch(const float* z, const float* packed, const float* mask,
-                   float* zq, int32_t* codes, int F, int D, int NQ, int K,
-                   int cs, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(cs, D / cs, K / cs, DC, NQ);
+                   float* zq, int32_t* codes, int F, int D, int Dp, int NQ,
+                   int Kp, int cs, cudaStream_t stream) {
+  const size_t bytes = smem_bytes(cs, Dp / cs, Kp / cs, DC, NQ);
   // raised once per size, not per launch (a CUDA graph can then capture it)
   static size_t configured = 0;
   if (bytes > configured) {
@@ -456,46 +487,54 @@ cudaError_t launch(const float* z, const float* packed, const float* mask,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, rvq_kernel<DC>, z, packed,
-                                       mask, zq, codes, F, D, NQ, K);
+                                       mask, zq, codes, F, D, Dp, NQ, Kp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-bool valid(int D, int K, int DC, int NQ, int cs) {
-  return (DC == 4 || DC == 8) && cs >= 1 && cs <= kMaxCluster &&
-         D % cs == 0 && K % cs == 0 && (D / cs) % 4 == 0 &&
-         (K / cs) % 4 == 0 && NQ >= 1;
+bool valid(int D, int Dp, int Kp, int DC, int NQ, int cs) {
+  return (DC == 1 || DC == 2 || DC == 4 || DC == 8 || DC == 16 || DC == 32) &&
+         cs >= 1 && cs <= kMaxCluster && Dp % cs == 0 && Kp % cs == 0 &&
+         (Dp / cs) % 4 == 0 && (Kp / cs) % 4 == 0 && D >= 1 && D <= Dp &&
+         NQ >= 1;
 }
 
 }  // namespace
 
-// Floats of one (stage, rank) slice of the packed weights: prepare_rvq packs
-// (Nq, cs, this) and the wrapper checks its layout against it.
-extern "C" int vrvq_rvq_stage_floats(int D, int K, int DC, int cs) {
-  return stage_floats(D / cs, K / cs, DC);
+// Floats of one (stage, rank) slice of the packed weights, at the padded
+// widths Dp, Kp and d: prepare_rvq packs (Nq, cs, this) and the wrapper
+// checks its layout against it.
+extern "C" int vrvq_rvq_stage_floats(int Dp, int Kp, int DC, int cs) {
+  return stage_floats(Dp / cs, Kp / cs, DC);
 }
 
 // Shared memory one CTA asks for, in bytes (the wrapper checks it against the
 // card's limit before launching).
-extern "C" long long vrvq_rvq_smem_bytes(int D, int K, int DC, int NQ, int cs) {
-  return (long long)smem_bytes(cs, D / cs, K / cs, DC, NQ);
+extern "C" long long vrvq_rvq_smem_bytes(int Dp, int Kp, int DC, int NQ, int cs) {
+  return (long long)smem_bytes(cs, Dp / cs, Kp / cs, DC, NQ);
 }
 
-// z (F, D); packed (NQ, cs, stage_floats) from prepare_rvq; mask (F, NQ) or
-// null for all stages kept; zq (F, D); codes (F, NQ) int32. All float32 and
-// contiguous, z and packed 16-byte aligned. cs: cluster size (divides D and
-// K, the slices a multiple of 4). Returns the cudaError_t of the launch.
+// z (F, D); packed (NQ, cs, stage_floats) from prepare_rvq at the padded
+// widths Dp >= D, Kp and DC (a power of two up to 32); mask (F, NQ) or null
+// for all stages kept; zq (F, D); codes (F, NQ) int32. All float32 and
+// contiguous, z and packed 16-byte aligned. cs: cluster size (divides Dp and
+// Kp, the slices a multiple of 4). Returns the cudaError_t of the launch.
 extern "C" int vrvq_rvq_forward(const float* z, const float* packed,
                                 const float* mask, float* zq, int* codes,
-                                int F, int D, int NQ, int K, int DC, int cs,
-                                void* stream) {
+                                int F, int D, int Dp, int NQ, int Kp, int DC,
+                                int cs, void* stream) {
   if (F <= 0) return 0;
-  if (!valid(D, K, DC, NQ, cs) ||
+  if (!valid(D, Dp, Kp, DC, NQ, cs) ||
       ((reinterpret_cast<uintptr_t>(packed) | reinterpret_cast<uintptr_t>(z)) &
        15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (DC == 4)
-    return (int)launch<4>(z, packed, mask, zq, codes, F, D, NQ, K, cs, s);
-  return (int)launch<8>(z, packed, mask, zq, codes, F, D, NQ, K, cs, s);
+  switch (DC) {
+    case 1: return (int)launch<1>(z, packed, mask, zq, codes, F, D, Dp, NQ, Kp, cs, s);
+    case 2: return (int)launch<2>(z, packed, mask, zq, codes, F, D, Dp, NQ, Kp, cs, s);
+    case 4: return (int)launch<4>(z, packed, mask, zq, codes, F, D, Dp, NQ, Kp, cs, s);
+    case 8: return (int)launch<8>(z, packed, mask, zq, codes, F, D, Dp, NQ, Kp, cs, s);
+    case 16: return (int)launch<16>(z, packed, mask, zq, codes, F, D, Dp, NQ, Kp, cs, s);
+    default: return (int)launch<32>(z, packed, mask, zq, codes, F, D, Dp, NQ, Kp, cs, s);
+  }
 }

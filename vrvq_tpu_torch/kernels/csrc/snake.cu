@@ -1,136 +1,227 @@
-// Snake activation y = x + sin^2(alpha * x) / (alpha + 1e-9), forward only.
+// Snake activation y = x + sin^2(alpha * x) / (alpha + 1e-9), forward only,
+// in four modes: the exact sin^2 or the polynomial one, on float32 or bfloat16
+// x and y (float32 alpha and arithmetic in every mode).
 //
 // Replaces the TPU kernel vrvq_tpu/ops/snake.py: snake_pallas -> _snake_kernel,
 // which streams channels-last (B, T, C) blocks through VMEM once. Here the
-// tensor stays in PyTorch's (B, C, T) layout.
+// tensor stays in PyTorch's (B, C, T) layout. The polynomial mode is the JAX
+// package's snake_approx (vrvq_tpu/ops/snake.py), which is plain jnp there;
+// in the port every Snake goes through this kernel, so it is a mode of it.
 //
-// Bound on the H100: bytes. 8 bytes move per element against a handful of
-// operations and one sinf, so the least time is 8 * n / 3.35 TB/s. On the
-// serve path most launches move 10-23 MB (a 1 s window's activations), a few
-// microseconds of memory time, so what holds a launch back is how soon and
-// how many bytes it has in flight, not arithmetic.
+// Bound on the H100: bytes. 2 * sizeof(T) bytes move per element against a
+// handful of operations and one sinf (or a degree-6 polynomial), so the
+// least time is 2 * sizeof(T) * n / 3.35 TB/s. On the serve path most launches
+// move 5-23 MB (a 1 s window's activations), a few microseconds of memory
+// time, so what holds a launch back is how soon and how many bytes it has in
+// flight, not arithmetic.
 //
 // Design. The grid is (B * C rows, tiles of T): a block works inside one row,
 // so each thread reads alpha and computes its reciprocal once, with no
 // division or modulo per element. Each thread issues all of its 16-byte loads
-// (kVec float4) before it computes any, so a block has 16 KB in flight and the
-// first wave covers the whole of a serve-path tensor. A row starts 16-byte
-// aligned only when T % 4 == 0 (on the serve path T is 44538, 44532, 22229,
+// (kVec of them: 4 floats or 8 bfloat16s each) before it computes any, so a
+// block has 16 KB in flight. A row starts 16-byte aligned only when T is a
+// multiple of 16 / sizeof(T) (on the serve path T is 44538, 44532, 22229,
 // ...), so the first block of a row peels a scalar head up to the first
-// 16-byte boundary of x and a scalar tail after the last whole float4. The
+// 16-byte boundary of x and a scalar tail after the last whole 16 bytes. The
 // head is taken from the address itself, never assumed: a contiguous view can
 // carry a storage offset. Where x and y are misaligned against each other
 // (such a view with an odd offset), the block runs the same tile with scalar
 // accesses. Small rows get smaller blocks (down to one warp) so threads are
 // not left idle. No tensor cores apply to an elementwise pass.
 //
-// Numerics follow the plain version (ops/snake.py: snake_reference) term for
-// term, so the kernel is bit-identical to it: the IEEE reciprocal
-// 1 / (alpha + 1e-9) first, then the product with s * s, then the sum, each
-// rounded on its own (__fmul_rn / __fadd_rn keep the compiler from contracting
-// them into an FMA). Build without --use_fast_math: it would turn sinf into
-// __sinf and the division into an approximation.
+// Numerics follow the plain versions (ops/snake.py: snake_reference,
+// snake_approx_reference) term for term, so the kernel is bit-identical to
+// them: x widened to float32, the IEEE reciprocal 1 / (alpha + 1e-9) first,
+// every product and sum rounded on its own (__fmul_rn / __fadd_rn keep the
+// compiler from contracting them into an FMA), the result rounded to T once
+// (round to nearest even). The polynomial: u = alpha x, k = rint(u / pi) (to
+// nearest even, as torch.round and jnp.round), the Cody-Waite reduction
+// r = (u - k PI_HI) - k PI_LO, sin^2 ~= s P(s) with s = r^2 and P of degree 6
+// by Horner. Its constants are the float32 values of the JAX package's
+// (_INV_PI, _PI_HI, _PI_LO, _SIN2_C), written as hex floats so that no
+// decimal rounding differs. Build without --use_fast_math: it would turn sinf
+// into __sinf and the division into an approximation.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kVec = 4;  // float4 loads in flight per thread
+constexpr int kVec = 4;  // 16-byte loads in flight per thread
 constexpr unsigned kMaxGridY = 65535;
 
-__device__ __forceinline__ float snake1(float v, float a, float inv) {
-  const float s = sinf(__fmul_rn(a, v));
-  return __fadd_rn(v, __fmul_rn(inv, __fmul_rn(s, s)));
+constexpr float kInvPi = 0x1.45f306p-2f;
+constexpr float kPiHi = 0x1.92p+1f;
+constexpr float kPiLo = 0x1.fb5444p-11f;
+constexpr float kC0 = 0x1p+0f;
+constexpr float kC1 = -0x1.555556p-2f;
+constexpr float kC2 = 0x1.6c16b6p-5f;
+constexpr float kC3 = -0x1.a01830p-9f;
+constexpr float kC4 = 0x1.27c1c6p-13f;
+constexpr float kC5 = -0x1.1c35dap-18f;
+constexpr float kC6 = 0x1.5e1a36p-24f;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <bool POLY>
+__device__ __forceinline__ float snake1(float v, float a, float inv) {
+  float sin2;
+  if (POLY) {
+    const float u = __fmul_rn(a, v);
+    const float k = rintf(__fmul_rn(u, kInvPi));
+    const float r = __fsub_rn(__fsub_rn(u, __fmul_rn(k, kPiHi)),
+                              __fmul_rn(k, kPiLo));
+    const float s = __fmul_rn(r, r);
+    float acc = __fadd_rn(__fmul_rn(kC6, s), kC5);
+    acc = __fadd_rn(__fmul_rn(acc, s), kC4);
+    acc = __fadd_rn(__fmul_rn(acc, s), kC3);
+    acc = __fadd_rn(__fmul_rn(acc, s), kC2);
+    acc = __fadd_rn(__fmul_rn(acc, s), kC1);
+    acc = __fadd_rn(__fmul_rn(acc, s), kC0);
+    sin2 = __fmul_rn(s, acc);
+  } else {
+    const float s = sinf(__fmul_rn(a, v));
+    sin2 = __fmul_rn(s, s);
+  }
+  return __fadd_rn(v, __fmul_rn(inv, sin2));
+}
+
+// 16 bytes of T as E floats, and back.
+template <typename T>
+struct Vec16 {
+  static constexpr int E = 16 / sizeof(T);
+  __device__ __forceinline__ static void widen_all(const uint4& u, float (&f)[E]) {
+    const T* p = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < E; ++j) f[j] = widen(p[j]);
+  }
+  __device__ __forceinline__ static uint4 narrow_all(const float (&f)[E]) {
+    uint4 u;
+    T* p = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int j = 0; j < E; ++j) p[j] = narrow<T>(f[j]);
+    return u;
+  }
+};
+
+template <typename T, bool POLY>
 __global__ void __launch_bounds__(kMaxThreads)
-snake_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
-             float* __restrict__ y, unsigned channels, long long length,
+snake_kernel(const T* __restrict__ x, const float* __restrict__ alpha,
+             T* __restrict__ y, unsigned channels, long long length,
              long long tiles) {
+  constexpr int E = Vec16<T>::E;  // elements per 16 bytes
   // every load of the block is issued before the first result is computed:
-  // alpha, the float4s, and the scalar head and tail of the row
+  // alpha, the 16-byte vectors, and the scalar head and tail of the row
   const float a = __ldg(alpha + blockIdx.x % channels);
   const long long row = blockIdx.x;
-  const float* xr = x + row * length;
-  float* yr = y + row * length;
+  const T* xr = x + row * length;
+  T* yr = y + row * length;
   const int nt = blockDim.x;
   const int t = threadIdx.x;
   const bool vector = ((reinterpret_cast<uintptr_t>(xr) ^
                         reinterpret_cast<uintptr_t>(yr)) & 15) == 0;
   const long long head =
-      vector ? min((long long)(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) / 4),
+      vector ? min((long long)(((16 - (reinterpret_cast<uintptr_t>(xr) & 15)) & 15) /
+                               sizeof(T)),
                    length)
              : 0;
-  const long long nvec = vector ? (length - head) / 4 : 0;
-  const float4* xv = reinterpret_cast<const float4*>(xr + head);
-  float4* yv = reinterpret_cast<float4*>(yr + head);
+  const long long nvec = vector ? (length - head) / E : 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + head);
+  uint4* yv = reinterpret_cast<uint4*>(yr + head);
 
   for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
     if (vector) {
       const long long v0 = tile * nt * kVec + t;
-      float4 buf[kVec];
+      uint4 buf[kVec];
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const long long v = v0 + (long long)i * nt;
         if (v < nvec) buf[i] = xv[v];
       }
       // the head (before xr's first 16-byte boundary) and the tail (after the
-      // last whole float4), by the first block of the row
-      const bool edge = tile == 0 && t < 4;
-      const long long tail = head + 4 * nvec + t;
-      const float hv = edge && t < head ? xr[t] : 0.0f;
-      const float tv = edge && tail < length ? xr[tail] : 0.0f;
+      // last whole 16 bytes), by the first block of the row
+      const bool edge = tile == 0 && t < E;
+      const long long tail = head + E * nvec + t;
+      const float hv = edge && t < head ? widen(xr[t]) : 0.0f;
+      const float tv = edge && tail < length ? widen(xr[tail]) : 0.0f;
       const float inv = 1.0f / (a + 1e-9f);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         const long long v = v0 + (long long)i * nt;
         if (v < nvec) {
-          float4 o;
-          o.x = snake1(buf[i].x, a, inv);
-          o.y = snake1(buf[i].y, a, inv);
-          o.z = snake1(buf[i].z, a, inv);
-          o.w = snake1(buf[i].w, a, inv);
-          yv[v] = o;
+          float f[E];
+          Vec16<T>::widen_all(buf[i], f);
+#pragma unroll
+          for (int j = 0; j < E; ++j) f[j] = snake1<POLY>(f[j], a, inv);
+          yv[v] = Vec16<T>::narrow_all(f);
         }
       }
-      if (edge && t < head) yr[t] = snake1(hv, a, inv);
-      if (edge && tail < length) yr[tail] = snake1(tv, a, inv);
+      if (edge && t < head) yr[t] = narrow<T>(snake1<POLY>(hv, a, inv));
+      if (edge && tail < length) yr[tail] = narrow<T>(snake1<POLY>(tv, a, inv));
     } else {
       const float inv = 1.0f / (a + 1e-9f);
-      const long long e0 = tile * nt * kVec * 4;
-      for (int i = t; i < nt * kVec * 4; i += nt) {
+      const long long e0 = tile * nt * kVec * E;
+      for (int i = t; i < nt * kVec * E; i += nt) {
         const long long e = e0 + i;
-        if (e < length) yr[e] = snake1(xr[e], a, inv);
+        if (e < length) yr[e] = narrow<T>(snake1<POLY>(widen(xr[e]), a, inv));
       }
     }
   }
 }
 
-}  // namespace
-
-// x, y: (B, C, T) float32, contiguous (x may start anywhere a float may);
-// alpha: (C,) float32. rows = B * C. Returns the cudaError_t of the launch
-// (0 on success).
-extern "C" int vrvq_snake_forward(const float* x, const float* alpha, float* y,
-                                  long long rows, long long channels,
-                                  long long length, void* stream) {
-  if (rows <= 0 || length <= 0) return 0;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // tiles of at most kMaxThreads * kVec float4; threads spread evenly over
+template <typename T, bool POLY>
+int launch(const void* x, const float* alpha, void* y, long long rows,
+           long long channels, long long length, cudaStream_t stream) {
+  constexpr int E = Vec16<T>::E;
+  // tiles of at most kMaxThreads * kVec vectors; threads spread evenly over
   // them, in whole warps
-  const long long per_tile = (long long)kMaxThreads * kVec * 4;
+  const long long per_tile = (long long)kMaxThreads * kVec * E;
   const long long tiles = (length + per_tile - 1) / per_tile;
-  const long long per_thread = (long long)kVec * 4 * tiles;
+  const long long per_thread = (long long)kVec * E * tiles;
   long long threads = (length + per_thread - 1) / per_thread;
   threads = (threads + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   const unsigned grid_y = tiles < kMaxGridY ? (unsigned)tiles : kMaxGridY;
-  snake_kernel<<<dim3((unsigned)rows, grid_y), (unsigned)threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      x, alpha, y, (unsigned)channels, length, tiles);
+  snake_kernel<T, POLY><<<dim3((unsigned)rows, grid_y), (unsigned)threads, 0,
+                          stream>>>(
+      static_cast<const T*>(x), alpha, static_cast<T*>(y), (unsigned)channels,
+      length, tiles);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, y: (B, C, T) of `dtype` (0 float32, 1 bfloat16), contiguous (x may start
+// anywhere an element may); alpha: (C,) float32. rows = B * C. poly: 1 for
+// the polynomial sin^2. Returns the cudaError_t of the launch (0 on success).
+extern "C" int vrvq_snake_forward(const void* x, const float* alpha, void* y,
+                                  long long rows, long long channels,
+                                  long long length, int dtype, int poly,
+                                  void* stream) {
+  if (rows <= 0 || length <= 0) return 0;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return poly ? launch<float, true>(x, alpha, y, rows, channels, length, s)
+                : launch<float, false>(x, alpha, y, rows, channels, length, s);
+  if (dtype == 1)
+    return poly ? launch<__nv_bfloat16, true>(x, alpha, y, rows, channels, length, s)
+                : launch<__nv_bfloat16, false>(x, alpha, y, rows, channels, length, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* vrvq_error_string(int err) {

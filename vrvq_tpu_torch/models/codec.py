@@ -3,8 +3,8 @@
 The port's own copy of ``vrvq_tpu/models/codec.py``: the ``ConvSpec`` walk that
 gives the padding-free codec's delay and output lengths, the VBR code packing
 and the ``DACFile`` format, so that the same codes give the same bytes in both
-packages. Pure Python and numpy. The range-coded format (``entropy=True``)
-needs the port of ``ops/rangecoder.py`` and raises until then.
+packages, in every format: plain, bit-packed and range-coded
+(``entropy=True``, ``ops/rangecoder.py``). Pure Python and numpy.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from pathlib import Path
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
+
+from ..ops.rangecoder import decode_adaptive, encode_adaptive
 
 SUPPORTED_VERSIONS = ["1.0.0"]
 
@@ -220,6 +222,23 @@ def _code_bits(codes_max_plus1: int) -> int:
     return max(1, int(math.ceil(math.log2(max(2, codes_max_plus1)))))
 
 
+def _kept_stage_contexts(counts: np.ndarray, n_codebooks: int) -> np.ndarray:
+    """Stage index of every kept code in ``pack_vbr_codes`` order
+    ((b, t, stage)): the range coder's per-stage model contexts."""
+    counts = np.asarray(counts)
+    stage = np.broadcast_to(
+        np.arange(n_codebooks).reshape(1, 1, n_codebooks),
+        (*counts.shape, n_codebooks),
+    )
+    return stage[stage < counts[:, :, None]]
+
+
+def _stage_contexts(shape) -> np.ndarray:
+    """Stage index of every code of a (B, Nq, T) CBR stream, flat."""
+    nq = shape[1]
+    return np.broadcast_to(np.arange(nq).reshape(1, nq, 1), shape).reshape(-1)
+
+
 @dataclass
 class DACFile:
     """The ``.dac`` bitstream: codes and metadata through ``np.save``.
@@ -228,7 +247,9 @@ class DACFile:
     extension: with per-frame codebook counts (``vbr_counts``) only the kept
     stage codes are stored, bit-packed to ceil(log2(codebook_size)) bits, with
     the counts packed to ceil(log2(Nq + 1)) bits. ``compact=True`` bit-packs a
-    CBR stream too.
+    CBR stream too. ``entropy=True`` range-codes the kept codes with one
+    adaptive model per stage (and the counts with one model) in place of
+    fixed-width packing; it implies ``compact`` for CBR.
     """
 
     codes: np.ndarray  # (B, Nq, T) int
@@ -245,13 +266,9 @@ class DACFile:
     def save(self, path, compact: bool = False,
              codebook_size: Optional[int] = None,
              entropy: bool = False) -> Path:
-        """``codebook_size`` sets the code width, by default the smallest
-        width that holds the stream's largest index."""
-        if entropy:
-            raise NotImplementedError(
-                "entropy-coded .dac files need ops/rangecoder.py, which is "
-                "not ported yet"
-            )
+        """``codebook_size`` sets the code width (the range coder's alphabet
+        with ``entropy``), by default the smallest width that holds the
+        stream's largest index."""
         metadata = {
             "input_db": np.float32(self.input_db),
             "original_length": self.original_length,
@@ -267,7 +284,22 @@ class DACFile:
             else (int(codes.max()) + 1 if codes.size else 2)
         )
 
-        if self.vbr_counts is not None:
+        if self.vbr_counts is not None and entropy:
+            counts = np.asarray(self.vbr_counts).astype(np.uint8)
+            nq = int(codes.shape[1])
+            kept = pack_vbr_codes(codes, counts)
+            artifacts = {
+                "codes_rc": np.frombuffer(encode_adaptive(
+                    kept, n_sym, _kept_stage_contexts(counts, nq), nq), np.uint8),
+                "rc_n_symbols": n_sym,
+                "n_codes": int(kept.size),
+                "counts_rc": np.frombuffer(
+                    encode_adaptive(counts, nq + 1), np.uint8),
+                "counts_shape": tuple(counts.shape),
+                "n_codebooks": nq,
+                "metadata": metadata,
+            }
+        elif self.vbr_counts is not None:
             counts = np.asarray(self.vbr_counts).astype(np.uint8)
             nq = int(codes.shape[1])
             kept = pack_vbr_codes(codes, counts)
@@ -281,6 +313,16 @@ class DACFile:
                 "count_bits": cbits,
                 "counts_shape": tuple(counts.shape),
                 "n_codebooks": nq,
+                "metadata": metadata,
+            }
+        elif entropy:
+            nq = int(codes.shape[1])
+            artifacts = {
+                "codes_rc": np.frombuffer(encode_adaptive(
+                    codes, n_sym, _stage_contexts(codes.shape), nq), np.uint8),
+                "rc_n_symbols": n_sym,
+                "n_codes": int(codes.size),
+                "codes_shape": tuple(codes.shape),
                 "metadata": metadata,
             }
         elif compact:
@@ -316,10 +358,26 @@ class DACFile:
         metadata["input_db"] = float(metadata["input_db"])
         vbr_counts = artifacts.get("vbr_counts", None)
         if "codes_rc" in artifacts:
-            raise NotImplementedError(
-                f"{path} is entropy-coded; ops/rangecoder.py is not ported yet"
-            )
-        if "counts_bits" in artifacts:
+            # range-coded
+            n_sym = int(artifacts["rc_n_symbols"])
+            n_codes = int(artifacts["n_codes"])
+            if "counts_rc" in artifacts:
+                shape = tuple(artifacts["counts_shape"])
+                nq = int(artifacts["n_codebooks"])
+                vbr_counts = decode_adaptive(
+                    artifacts["counts_rc"].tobytes(), int(np.prod(shape)), nq + 1,
+                ).astype(np.uint8).reshape(shape)
+                kept = decode_adaptive(
+                    artifacts["codes_rc"].tobytes(), n_codes, n_sym,
+                    _kept_stage_contexts(vbr_counts, nq), nq)
+                codes = unpack_vbr_codes(kept, vbr_counts, nq)
+            else:
+                shape = tuple(artifacts["codes_shape"])
+                codes = decode_adaptive(
+                    artifacts["codes_rc"].tobytes(), n_codes, n_sym,
+                    _stage_contexts(shape), int(shape[1]),
+                ).astype(np.int32).reshape(shape)
+        elif "counts_bits" in artifacts:
             # bit-packed VBR
             shape = tuple(artifacts["counts_shape"])
             vbr_counts = unpack_bits(

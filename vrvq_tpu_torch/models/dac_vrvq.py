@@ -4,11 +4,17 @@ Counterpart of ``vrvq_tpu/models/dac_vrvq.py`` in eval mode, in (B, C, T):
 audio ``(B, 1, T)``, latents ``(B, D, T')``, codes ``(B, Nq, T')``.
 ``padding=False`` builds the padding-free codec that chunked compression
 runs; ``clone(padding=...)`` gives the other variant on the same parameters.
+A ``Profile`` sets how the conv stacks run at inference (the JAX model's
+inference fields, ``vrvq_tpu/models/dac_vrvq.py``): folded weight norm,
+the polynomial Snake, per stack, and the decoder's compute dtype; ``infer/fast.py``
+builds the fast and turbo profiles. The quantizer, with the importance
+subnet, always runs live in float32 with the exact Snake.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -21,22 +27,40 @@ from . import codec
 from .quantize import VBRResidualVectorQuantize
 
 
+@dataclass(frozen=True)
+class Profile:
+    """How each conv stack runs at inference. The defaults are the live
+    exact codec. The encoder computes in float32; a decoder compute dtype
+    other than float32 needs the decoder folded (its kernels are stored in
+    that dtype)."""
+
+    encoder_folded: bool = False
+    decoder_folded: bool = False
+    decoder_compute_dtype: torch.dtype = torch.float32
+    encoder_snake_approx: bool = False
+    decoder_snake_approx: bool = False
+
+
 class Encoder(nn.Module):
     """k=7 in conv -> EncoderBlocks (width doubles at each stride) -> Snake ->
-    k=3 out conv. (B, 1, T) -> (B, latent_dim, T')."""
+    k=3 out conv. (B, 1, T) -> (B, latent_dim, T'), in float32."""
 
     def __init__(self, d_model: int, strides: Sequence[int], latent_dim: int,
-                 padding: bool = True):
+                 padding: bool = True, folded: bool = False,
+                 snake_approx: bool = False):
         super().__init__()
         pad_mode = "zeros" if padding else "none"
-        self.in_conv = WNConv1d(1, d_model, 7, padding=3, pad_mode=pad_mode)
+        self.in_conv = WNConv1d(1, d_model, 7, padding=3, pad_mode=pad_mode,
+                                folded=folded)
         self.n_blocks = len(strides)
         d = d_model
         for i, stride in enumerate(strides):
             d *= 2
-            self.add_module(f"block_{i}", EncoderBlock(d, stride, padding))
-        self.snake = Snake1d(d)
-        self.out_conv = WNConv1d(d, latent_dim, 3, padding=1, pad_mode=pad_mode)
+            self.add_module(f"block_{i}", EncoderBlock(
+                d, stride, padding, folded, snake_approx))
+        self.snake = Snake1d(d, snake_approx)
+        self.out_conv = WNConv1d(d, latent_dim, 3, padding=1, pad_mode=pad_mode,
+                                 folded=folded)
 
     def forward(self, x: torch.Tensor, return_feat: bool = False):
         """With ``return_feat`` also the activation after the last block,
@@ -53,37 +77,43 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """k=7 in conv -> DecoderBlocks (width halves at each rate) -> Snake ->
-    k=7 out conv -> tanh. (B, latent, T') -> (B, 1, T)."""
+    k=7 out conv -> tanh. (B, latent, T') -> (B, 1, T), float32 whatever
+    ``dtype`` the stack computes in."""
 
     def __init__(self, input_channel: int, channels: int, rates: Sequence[int],
-                 d_out: int = 1, padding: bool = True):
+                 d_out: int = 1, padding: bool = True, folded: bool = False,
+                 snake_approx: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         pad_mode = "zeros" if padding else "none"
+        self.dtype = dtype
         self.in_conv = WNConv1d(input_channel, channels, 7, padding=3,
-                                pad_mode=pad_mode)
+                                pad_mode=pad_mode, folded=folded, dtype=dtype)
         self.n_blocks = len(rates)
         output_dim = channels
         for i, stride in enumerate(rates):
             input_dim = channels // (2 ** i)
             output_dim = channels // (2 ** (i + 1))
-            self.add_module(f"block_{i}",
-                            DecoderBlock(input_dim, output_dim, stride, padding))
-        self.snake = Snake1d(output_dim)
+            self.add_module(f"block_{i}", DecoderBlock(
+                input_dim, output_dim, stride, padding, folded, snake_approx,
+                dtype))
+        self.snake = Snake1d(output_dim, snake_approx)
         self.out_conv = WNConv1d(output_dim, d_out, 7, padding=3,
-                                 pad_mode=pad_mode)
+                                 pad_mode=pad_mode, folded=folded, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.in_conv(x)
+        x = self.in_conv(x.to(self.dtype))
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
-        return torch.tanh(self.out_conv(self.snake(x)))
+        return torch.tanh(self.out_conv(self.snake(x))).float()
 
 
 class DAC_VRVQ(nn.Module):
     """The VBR codec. Parameters are left uninitialized: load them
     (``convert.state_dict_from_jax``) or draw them (``convert.init_params``)."""
 
-    def __init__(self, config: ModelConfig, padding: bool = True):
+    def __init__(self, config: ModelConfig, padding: bool = True,
+                 profile: Profile = Profile()):
         super().__init__()
         if config.model_type != "VBR":
             raise NotImplementedError(
@@ -92,15 +122,20 @@ class DAC_VRVQ(nn.Module):
             )
         self.config = config
         self.padding = padding
+        self.profile = profile
         latent_dim = config.latent_dim
         self.encoder = Encoder(config.encoder_dim, config.encoder_rates,
-                               latent_dim, padding)
+                               latent_dim, padding, profile.encoder_folded,
+                               profile.encoder_snake_approx)
         self.quantizer = VBRResidualVectorQuantize(
             latent_dim, config.n_codebooks, config.codebook_size,
             config.codebook_dim, imp2mask_alpha=config.imp2mask_alpha,
         )
         self.decoder = Decoder(latent_dim, config.decoder_dim,
-                               config.decoder_rates, padding=padding)
+                               config.decoder_rates, padding=padding,
+                               folded=profile.decoder_folded,
+                               snake_approx=profile.decoder_snake_approx,
+                               dtype=profile.decoder_compute_dtype)
 
     # ------------------------------------------------------------ geometry
     @property
@@ -132,10 +167,19 @@ class DAC_VRVQ(nn.Module):
     # ------------------------------------------------------------ variants
     def clone(self, padding: bool) -> "DAC_VRVQ":
         """The same codec with ``padding`` set, sharing this one's parameter
-        tensors (no copy) and its Snake kernel switches."""
+        tensors (no copy), its profile and its Snake kernel switches."""
+        return self.with_state(self.state_dict(), padding=padding)
+
+    def with_state(self, state_dict, padding: Optional[bool] = None,
+                   profile: Optional[Profile] = None) -> "DAC_VRVQ":
+        """A codec of this config on ``state_dict``'s tensors themselves (no
+        copy), with ``padding`` and ``profile`` (this one's by default) and
+        this one's Snake kernel switches and training mode."""
         with torch.device("meta"):
-            twin = DAC_VRVQ(self.config, padding=padding)
-        twin.load_state_dict(self.state_dict(), assign=True)
+            twin = DAC_VRVQ(self.config,
+                            padding=self.padding if padding is None else padding,
+                            profile=self.profile if profile is None else profile)
+        twin.load_state_dict(state_dict, assign=True)
         twin.use_kernels(self.uses_kernels())
         return twin.train(self.training)
 

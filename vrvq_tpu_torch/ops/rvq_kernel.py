@@ -14,6 +14,11 @@ block of wi^T, wo, bo, the normalized codebook^T, its squared norms, the
 codebook and bi (``pack_rvq``). ``prepare_rvq`` packs them once for callers
 that quantize many windows with the same weights (``quantize_fused``), and
 ``fused_rvq`` on every call.
+
+Any codebook_dim from 1 to ``MAX_CODEBOOK_DIM`` and any D and K: the packing
+pads d to the next power of two (the widths the kernel is built for), and D
+and K to ``cs`` slices of a multiple of 4 floats, with zero components and
+channels and with codes that can never win (``padded_dims``).
 """
 
 from __future__ import annotations
@@ -51,55 +56,80 @@ class PreparedRVQ(NamedTuple):
     """``RVQWeights`` with the kernel's packed operand."""
 
     weights: RVQWeights
-    cluster: int  # CTAs per cluster; 0 when no size fits the shapes
-    packed: Optional[torch.Tensor]  # (Nq, cluster, stage floats) or None
+    cluster: int  # CTAs per cluster
+    packed: torch.Tensor  # (Nq, cluster, stage floats)
 
 
 CLUSTER_SIZES = (8, 4, 2, 1)  # portable sizes, largest first
+MAX_CODEBOOK_DIM = 32  # the widest d the kernel is built for
+SLICE_CAP = 128  # channels or codes of one CTA above which a larger cluster pads
 
 
 def cluster_size(d_model: int, k: int) -> int:
-    """The largest cluster size that splits the D channels and the K codes
-    into slices of a multiple of 4 floats (16-byte copies), or 0."""
-    for cs in CLUSTER_SIZES:
-        if d_model % (4 * cs) == 0 and k % (4 * cs) == 0:
-            return cs
-    return 0
+    """CTAs per cluster: the largest size that splits the D channels and the
+    K codes into slices of a multiple of 4 floats (16-byte copies), raised,
+    where that leaves a slice wider than ``SLICE_CAP`` (shared memory grows
+    with it), to the smallest size whose padded slices are no wider."""
+    exact = next((cs for cs in CLUSTER_SIZES
+                  if d_model % (4 * cs) == 0 and k % (4 * cs) == 0), 0)
+    narrow = next((cs for cs in reversed(CLUSTER_SIZES)
+                   if max(-(-d_model // cs), -(-k // cs)) <= SLICE_CAP),
+                  CLUSTER_SIZES[0])
+    return max(exact, narrow)
+
+
+def padded_dims(d_model: int, k: int, d_code: int, cs: int) -> Tuple[int, int, int]:
+    """(Dp, Kp, dp): D and K padded to ``cs`` slices of a multiple of 4, and
+    d to the next power of two."""
+    def slices(n):
+        return cs * 4 * -(-n // (4 * cs))
+    return slices(d_model), slices(k), 1 << (d_code - 1).bit_length()
 
 
 def pack_rvq(weights: RVQWeights, cn: torch.Tensor, cn2: torch.Tensor,
              cs: int) -> torch.Tensor:
     """(Nq, cs, floats): for stage s and CTA r, one contiguous block of
-    wi^T[:, rD/cs:(r+1)D/cs] (d, D/cs), wo[:, same] (d, D/cs), bo[same],
-    cn^T[:, rK/cs:(r+1)K/cs] (d, K/cs), cn2[same], cb[same] (K/cs, d), bi.
-    ``cn`` is the normalized codebook (Nq, K, d), ``cn2`` its squared norms."""
+    wi^T[:, rDp/cs:(r+1)Dp/cs] (dp, Dp/cs), wo[:, same] (dp, Dp/cs), bo[same],
+    cn^T[:, rKp/cs:(r+1)Kp/cs] (dp, Kp/cs), cn2[same], cb[same] (Kp/cs, dp),
+    bi, then zeros to a multiple of 4 floats. ``cn`` is the normalized
+    codebook (Nq, K, d), ``cn2`` its squared norms (Nq, K). Padding
+    (``padded_dims``): zeros everywhere, except a padded code's ``cn2``,
+    which is +inf so that it never wins."""
     n_q, d_model, d_code = weights.wi.shape
     k = weights.cb.shape[1]
-    dc, kc = d_model // cs, k // cs
+    dp_model, kp, dp = padded_dims(d_model, k, d_code, cs)
+    dc, kc = dp_model // cs, kp // cs
 
-    def by_rank(t, width):  # (Nq, d, cs * width) -> (Nq, cs, d * width)
-        return t.reshape(n_q, d_code, cs, width).transpose(1, 2).reshape(
-            n_q, cs, d_code * width)
+    def pad(t, *widths, value=0.0):  # zeros (or value) after each trailing axis
+        spec = [p for w, n in zip(reversed(widths), reversed(t.shape[1:]))
+                for p in (0, w - n)]
+        return torch.nn.functional.pad(t, spec, value=value)
 
-    return torch.cat([
-        by_rank(weights.wi.transpose(1, 2), dc),
-        by_rank(weights.wo, dc),
-        weights.bo.reshape(n_q, cs, dc),
-        by_rank(cn.transpose(1, 2), kc),
-        cn2.reshape(n_q, cs, kc),
-        weights.cb.reshape(n_q, cs, kc * d_code),
-        weights.bi[:, None, :].expand(n_q, cs, d_code),
-    ], dim=2).contiguous()
+    def by_rank(t, width):  # (Nq, dp, cs * width) -> (Nq, cs, dp * width)
+        return t.reshape(n_q, dp, cs, width).transpose(1, 2).reshape(
+            n_q, cs, dp * width)
+
+    blocks = [
+        by_rank(pad(weights.wi.transpose(1, 2), dp, dp_model), dc),
+        by_rank(pad(weights.wo, dp, dp_model), dc),
+        pad(weights.bo, dp_model).reshape(n_q, cs, dc),
+        by_rank(pad(cn.transpose(1, 2), dp, kp), kc),
+        pad(cn2, kp, value=float("inf")).reshape(n_q, cs, kc),
+        pad(weights.cb, kp, dp).reshape(n_q, cs, kc * dp),
+        pad(weights.bi, dp)[:, None, :].expand(n_q, cs, dp),
+    ]
+    floats = sum(b.shape[2] for b in blocks)
+    blocks.append(weights.wi.new_zeros(n_q, cs, -floats % 4))
+    return torch.cat(blocks, dim=2).contiguous()
 
 
 def prepare_rvq(weights: RVQWeights) -> PreparedRVQ:
     """Weight preparation for the kernel, so that it scores exactly as the
     plain version does: the codebook normalized and its squared norms taken
-    with the plain version's expressions, then packed by CTA."""
+    with the plain version's expressions on the unpadded codebook, then
+    padded and packed by CTA."""
     weights = RVQWeights(*(t.contiguous() for t in weights))
     cs = cluster_size(weights.wi.shape[1], weights.cb.shape[1])
-    if cs == 0:
-        return PreparedRVQ(weights, 0, None)
     cn = _normalize(weights.cb)
     return PreparedRVQ(weights, cs,
                        pack_rvq(weights, cn, torch.sum(cn * cn, dim=2), cs))
@@ -198,8 +228,9 @@ def _check(z, weights: RVQWeights, mask) -> None:
             raise ValueError(
                 f"fused_rvq: {name} has shape {tuple(t.shape)}, expected {shape}"
             )
-    if d_code not in (4, 8):
-        raise ValueError(f"fused_rvq: codebook_dim {d_code} not in (4, 8)")
+    if not 1 <= d_code <= MAX_CODEBOOK_DIM:
+        raise ValueError(
+            f"fused_rvq: codebook_dim {d_code} not in [1, {MAX_CODEBOOK_DIM}]")
 
 
 def fused_rvq_prepared(
@@ -216,17 +247,14 @@ def fused_rvq_prepared(
     k = w.cb.shape[1]
     f = z.shape[0]
     cs = prepared.cluster
-    if cs == 0:
-        raise ValueError(
-            f"fused_rvq: no cluster size in {CLUSTER_SIZES} splits D={d_model} "
-            f"and K={k} into slices of a multiple of 4")
+    dp_model, kp, dp = padded_dims(d_model, k, d_code, cs)
     lib = library()
-    floats = lib.vrvq_rvq_stage_floats(d_model, k, d_code, cs)
+    floats = lib.vrvq_rvq_stage_floats(dp_model, kp, dp, cs)
     if tuple(prepared.packed.shape) != (n_q, cs, floats):
         raise ValueError(
             f"fused_rvq: packed weights {tuple(prepared.packed.shape)}, the "
             f"kernel reads {(n_q, cs, floats)}")
-    smem = lib.vrvq_rvq_smem_bytes(d_model, k, d_code, n_q, cs)
+    smem = lib.vrvq_rvq_smem_bytes(dp_model, kp, dp, n_q, cs)
     limit = getattr(torch.cuda.get_device_properties(z.device),
                     "shared_memory_per_block_optin", None)
     if limit is not None and smem > limit:
@@ -246,7 +274,8 @@ def fused_rvq_prepared(
     err = lib.vrvq_rvq_forward(
         z.data_ptr(), prepared.packed.data_ptr(),
         mask.data_ptr() if mask is not None else None,
-        z_q.data_ptr(), codes.data_ptr(), f, d_model, n_q, k, d_code, cs,
+        z_q.data_ptr(), codes.data_ptr(), f, d_model, dp_model, n_q, kp, dp,
+        cs,
         torch.cuda.current_stream(z.device).cuda_stream,
     )
     LAUNCHES["rvq"] += 1

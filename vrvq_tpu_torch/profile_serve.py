@@ -1,12 +1,16 @@
 """Where the serving path's time goes on the card.
 
-``python -m vrvq_tpu_torch.profile_serve [--trace PATH]`` compresses (VBR,
-level 1, 1 s windows, fused quantizer) and decompresses a seeded synthetic
-10 s clip with the flagship codec (random seeded weights), as
-``chip_smoke.py``'s serve phase does, then:
+``python -m vrvq_tpu_torch.profile_serve [--profile exact|fast|turbo]
+[--pool N] [--trace PATH]`` compresses (VBR, level 1, 1 s windows, fused
+quantizer) and decompresses a seeded synthetic 10 s clip with the flagship
+codec (random seeded weights), as ``chip_smoke.py``'s serve phase does, in
+the given profile (``infer/fast.py``; ``exact`` is the live model). With
+``--pool N`` it serves N such clips (other seeds) at once instead, through
+``StreamPool`` and ``DecoderPool`` with ``max_batch=N``, every stream pushed
+1 s at a time, a poll after each push. Then:
 
   * times compress and decompress on the host clock, each ending in a copy
-    to the host (mean of 3 runs after a warm-up run);
+    to the host (3 runs after a warm-up run);
   * traces one more compress and decompress with ``torch.profiler`` and sums
     the device time of every kernel by class (conv, Snake kernel, fused-RVQ
     kernel, matmul, elementwise, copies), with the device's busy share of the
@@ -26,9 +30,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
+from vrvq_tpu_torch.infer import fast, streaming
 
 CLIP_S = 10.0
 WINDOW_S = 1.0
+PROFILES = {"exact": lambda m: m, "fast": fast.make_inference_model,
+            "turbo": fast.make_serving_model}
 
 CLASSES = [
     ("snake_kernel", "snake (K2)"),
@@ -50,32 +57,41 @@ def kernel_class(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default="exact", choices=sorted(PROFILES))
+    ap.add_argument("--pool", type=int, default=0,
+                    help="serve this many streams through StreamPool")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
 
-    model = port.build_model(port.FLAGSHIP, device="cuda", seed=0)
+    model = PROFILES[args.profile](
+        port.build_model(port.FLAGSHIP, device="cuda", seed=0))
     proc = port.CodecProcessor(model, fused_quantizer=True)
-    signal = port.Signal(port.synthetic_clip(CLIP_S, model.sample_rate, 0),
-                         model.sample_rate)
+    sr = model.sample_rate
+    if args.pool:
+        compress, decompress = pool_codec(proc, args.pool)
+    else:
+        signal = port.Signal(port.synthetic_clip(CLIP_S, sr, 0), sr)
 
-    def compress():
-        return proc.compress(signal, win_duration=WINDOW_S, level=1.0)
+        def compress():
+            return proc.compress(signal, win_duration=WINDOW_S, level=1.0)
+
+        decompress = proc.decompress
 
     dac = compress()
-    proc.decompress(dac)
+    decompress(dac)
     enc, dec = [], []
     for _ in range(3):
         t0 = time.perf_counter()
         dac = compress()
         t1 = time.perf_counter()
-        proc.decompress(dac)
+        decompress(dac)
         t2 = time.perf_counter()
         enc.append(t1 - t0)
         dec.append(t2 - t1)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        proc.decompress(compress())
+        decompress(compress())
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     if args.trace:
@@ -92,9 +108,11 @@ def main() -> None:
         by_name[evt.name[:80]] += us / 1e3
         n_kernels += 1
     device_ms = sum(by_class.values())
+    windows = (len(dac) if args.pool
+               else int(dac.codes.shape[-1] // dac.chunk_length))
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0), "clip_s": CLIP_S,
-        "windows": int(dac.codes.shape[-1] // dac.chunk_length),
+        "card": torch.cuda.get_device_name(0), "profile": args.profile,
+        "streams": args.pool or 1, "clip_s": CLIP_S, "windows": windows,
         "compress_s": enc, "decompress_s": dec,
         "traced_wall_ms": traced_s * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (traced_s * 1e3),
@@ -102,6 +120,39 @@ def main() -> None:
         "device_ms_by_class": dict(by_class.most_common()),
         "top_kernels_ms": dict(by_name.most_common(12)),
     }))
+
+
+def pool_codec(proc, n: int):
+    """(compress, decompress) of ``n`` seeded 10 s streams through one
+    ``StreamPool`` / ``DecoderPool`` of ``max_batch=n``: every stream pushed
+    1 s at a time, a poll after each push; the chunks stand for the file."""
+    sr = proc.model.sample_rate
+    streams = {i: port.synthetic_clip(CLIP_S, sr, 10 + i)[0, 0] for i in range(n)}
+
+    def compress():
+        pool = streaming.StreamPool(proc, win_duration=WINDOW_S, level=1.0,
+                                    max_batch=n)
+        for sid in streams:
+            pool.add_stream(sid)
+        chunks = []
+        for start in range(0, int(CLIP_S * sr), sr):
+            for sid, x in streams.items():
+                pool.push(sid, x[start: start + sr])
+            chunks += pool.poll()
+        for sid in streams:
+            pool.flush(sid)
+        return chunks + pool.poll()
+
+    def decompress(chunks):
+        dp = streaming.DecoderPool(proc, win_duration=WINDOW_S, max_batch=n)
+        out = []
+        for i in range(0, len(chunks), n):
+            for sid, codes, counts in chunks[i: i + n]:
+                dp.push(sid, codes, counts)
+            out += dp.poll()
+        return out
+
+    return compress, decompress
 
 
 if __name__ == "__main__":
