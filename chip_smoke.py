@@ -2,7 +2,7 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It builds
-the kernels (one ``nvcc`` call), then runs eight phases and prints one line
+the kernels (one ``nvcc`` call), then runs nine phases and prints one line
 for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
@@ -44,7 +44,21 @@ for each:
            (``vrvq_tpu_torch/reference.py``): flips on near-tie and other
            frames, mask agreement, decode SI-SDR of the fixture's codes,
            and as a control the same decode with TF32 convs, which must
-           fall under the bar that the float32 decode clears.
+           fall under the bar that the float32 decode clears;
+  train    ``train()`` of the flagship generator and discriminator (MPD
+           2/3/5/7/11, MRD 2048/1024/512) on 32 seeded 1 s wavs through the
+           port's loader, batch 16 x 0.38 s, vrvq_a2.yml's lambdas: 3 steps
+           with a validation and a save at steps 0 and 2, the saved
+           ``latest`` loaded and held bit for bit against the trained
+           state, step 3 taken on the trained state (the uninterrupted
+           step: every parameter of both networks must get a non-zero
+           gradient) and again through ``train()`` resumed from ``latest``
+           (the difference of their losses printed); finite losses, both
+           grad norms, ms per step, clips per second, peak memory, the
+           launches of K2's forward and backward per step (K1 never); K2's
+           backward against its plain version at every shape of the train
+           step's Snake census (errors, bit-identity of two launches, device
+           time against its bound), and K2's forward over the same census.
 
 Times are device times with a cold L2 (``vrvq_tpu_torch.kernel_times``: a
 CUDA graph of launches, each after a copy that evicts the L2 cache, less the
@@ -52,7 +66,8 @@ graph of copies alone), taken on the inputs that the kernel was compared on.
 Then a JSON line of the kernels on the main paths (K2 in each mode summed
 over the census of the path that runs it, each shape weighted by its
 launches, and over the pool's census; K1 at one window's 72 frames and at a
-pool batch's 576), each
+pool batch's 576; K2's forward and backward over the train step's census),
+each
 with the launches of its path (counts cleared just before the path runs,
 read just after), the card's ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -61,6 +76,7 @@ exits non-zero; without CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -76,11 +92,13 @@ import vrvq_tpu_torch as port
 from vrvq_tpu_torch import kernel_times as kt
 from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
+from vrvq_tpu_torch.config import FLAGSHIP_TRAIN
 from vrvq_tpu_torch.kernels import build
 from vrvq_tpu_torch.metrics import si_sdr
 from vrvq_tpu_torch.models.quantize import VBRResidualVectorQuantize
 from vrvq_tpu_torch.ops import rvq_kernel as rvq_ops
 from vrvq_tpu_torch.ops import snake as snake_ops
+from vrvq_tpu_torch.train import trainer
 
 SEED = 0
 DEVICE = "cuda"
@@ -104,6 +122,15 @@ SNAKE_BF16_TOL = 0.0  # bfloat16 modes: the plain version rounds as the kernel
 SNAKE_MODES = ("snake", "snake_approx", "snake_bf16", "snake_approx_bf16")
 # K1's codebook shapes beyond the flagship's (n_q, D, K, d), at a window's
 # frames: every codebook width, and sizes no cluster of 4-wide slices splits
+TRAIN_WAVS = 32  # seeded 1 s clips the train phase's loader reads
+TRAIN_BATCH = 16
+TRAIN_DURATION_S = 0.38  # conf/dataset.yml: train/AudioDataset.duration
+TRAIN_STEPS = 4  # 3 through train(), the 4th resumed from `latest`
+# K2's backward against its plain version: dx's largest difference over
+# max|dx| (the kernel repeats the plain version's roundings: 0 is expected)
+# and dalpha's over max|dalpha| (a float32 sum in another order)
+SNAKE_BWD_DX_TOL = 1e-6
+SNAKE_BWD_DALPHA_TOL = 1e-4
 RVQ_WIDE_SHAPES = [(8, 1024, 1024, d) for d in (1, 2, 3, 16, 32)] + [
     (8, 1000, 1000, 8), (8, 6, 6, 8)]
 
@@ -630,6 +657,148 @@ def reference_phase(model):
           own_decode_si_sdr_db=si_sdr(out["audio"][None], fixture["audio"][None]))
 
 
+def train_config(wav_dir: Path) -> dict:
+    """The flagship's training dict on ``wav_dir``, at batch 16 x 0.38 s,
+    3 steps with a validation (one batch of 16 clips of 0.38 s) and a save
+    at steps 0 and 2."""
+    cfg = dict(FLAGSHIP_TRAIN)
+    cfg.update({
+        "train/build_dataset.folders": {"music": [str(wav_dir)]},
+        "val/build_dataset.folders": {"music": [str(wav_dir)]},
+        "train/AudioDataset.duration": TRAIN_DURATION_S,
+        "val/AudioDataset.duration": TRAIN_DURATION_S,
+        "val/AudioDataset.n_examples": TRAIN_BATCH,
+        "batch_size": TRAIN_BATCH, "val_batch_size": TRAIN_BATCH,
+        "num_iters": TRAIN_STEPS - 1, "valid_freq": 2, "seed": SEED,
+    })
+    return cfg
+
+
+def same_bits(a, b, where: str = "") -> None:
+    """Assert two state dicts (nested dicts, lists, tensors, numbers) equal
+    bit for bit."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            same_bits(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_bits(x, y, f"{where}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        assert (a.dtype, a.shape, a.device) == (b.dtype, b.shape, b.device), where
+        bits = (lambda t: t.reshape(-1).view(torch.uint8)) if a.is_floating_point() \
+            else (lambda t: t)
+        assert torch.equal(bits(a), bits(b)), where
+    else:
+        assert a == b, (where, a, b)
+
+
+def snake_backward_check(shape, gen):
+    """K2's backward against its plain version at ``shape``, timed."""
+    x, alpha = kt.snake_inputs(shape, gen)
+    g = torch.randn(shape, generator=gen).to(DEVICE)
+    out = kt.time_snake_backward(snake_ops, x, alpha, g)
+    assert out["bit_identical"], (shape, out)
+    assert out["dx_rel_err"] <= SNAKE_BWD_DX_TOL, (shape, out)
+    assert out["dalpha_rel_err"] <= SNAKE_BWD_DALPHA_TOL, (shape, out)
+    return out
+
+
+def train_phase(gen):
+    """See the module docstring. Returns the kernel rows of K2's forward and
+    backward over the train step's census."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir = Path(tmp) / "wavs"
+        wav_dir.mkdir()
+        for i in range(TRAIN_WAVS):
+            port.Signal(port.synthetic_clip(1.0, 44100, SEED + 100 + i),
+                        44100).write(wav_dir / f"clip_{i:02d}.wav")
+        cfg = train_config(wav_dir)
+        save = Path(tmp) / "ckpt"
+        torch.cuda.reset_peak_memory_stats()
+        build.LAUNCHES.clear()
+        run = trainer.train(cfg, str(save), device=DEVICE)
+        torch.cuda.synchronize()
+        launches = collections.Counter(build.LAUNCHES)
+        state = run.train_state
+        assert state.step == TRAIN_STEPS - 1, state.step
+        n_gen = sum(p.numel() for p in state.generator.parameters())
+        n_disc = sum(p.numel() for p in state.discriminator.parameters())
+        assert n_gen == FLAGSHIP_PARAMS, n_gen
+
+        # the saved `latest` against the trained state, bit for bit
+        loaded = trainer.load({**cfg, "resume": True}, trainer.Tracker(), save,
+                              resume=True, device=torch.device(DEVICE))
+        for name in ("generator", "discriminator", "opt_g", "opt_d"):
+            same_bits(getattr(loaded.train_state, name).state_dict(),
+                      getattr(state, name).state_dict(), name)
+        assert loaded.train_state.step == state.step
+        del loaded
+
+        # step 3 on the trained state: the uninterrupted run's next step,
+        # with the Snake census of one train step and its launches
+        step = TRAIN_STEPS - 1
+        audio = trainer.prepare_audio(
+            run.train_data, trainer.load_batch(run.train_data, step, TRAIN_BATCH),
+            torch.device(DEVICE))
+        with kt.snake_census(state.generator) as census:
+            build.LAUNCHES.clear()
+            metrics = run.train_step(state, audio, generator=trainer.step_generator(
+                SEED, step, torch.device(DEVICE)))
+            torch.cuda.synchronize()
+            step_launches = dict(build.LAUNCHES)
+        uninterrupted = {k: v.item() for k, v in metrics.items()}
+        per_step = sum(census.values())
+        assert step_launches.get("snake_backward") == per_step, (step_launches, per_step)
+        assert step_launches.get("snake") == per_step, (step_launches, per_step)
+        assert step_launches.get("rvq", 0) == 0, step_launches
+        no_grad = [f"{net}.{n}" for net, m in (("generator", state.generator),
+                                                ("discriminator", state.discriminator))
+                   for n, p in m.named_parameters()
+                   if p.grad is None or not bool(torch.count_nonzero(p.grad))]
+        assert not no_grad, f"parameters without a gradient: {no_grad}"
+
+        # step 3 again, through train() resumed from `latest`
+        build.LAUNCHES.clear()
+        resumed = trainer.train({**cfg, "num_iters": TRAIN_STEPS, "resume": True},
+                                str(save), device=DEVICE)
+        torch.cuda.synchronize()
+        launches += build.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_metrics = run.metrics + resumed.metrics
+    for m in step_metrics:
+        assert all(np.isfinite(v) for v in m.values()), m
+    assert launches.get("rvq", 0) == 0, launches
+    assert launches.get("snake_backward") == TRAIN_STEPS * per_step, launches
+    step_ms = run.step_ms + resumed.step_ms
+    median_ms = float(np.median(step_ms[1:]))
+    resume_diff = {k: resumed.metrics[0][k] - uninterrupted[k] for k in uninterrupted}
+
+    census = dict(census)
+    bwd = [snake_backward_check(shape, gen) for shape in census]
+    fwd = [snake_check(shape, gen) for shape in census]
+    bwd_row = census_row(bwd, census)
+    bwd_row.update(dx_rel_err=max(c["dx_rel_err"] for c in bwd),
+                   dalpha_rel_err=max(c["dalpha_rel_err"] for c in bwd))
+    fwd_row = census_row(fwd, census)
+    phase("train", generator_params=n_gen, discriminator_params=n_disc,
+          batch=TRAIN_BATCH, duration_s=TRAIN_DURATION_S, steps=len(step_ms),
+          losses=step_metrics, step_ms=step_ms, data_ms=run.data_ms + resumed.data_ms,
+          median_step_ms_2_to_4=median_ms,
+          clips_per_s=TRAIN_BATCH / (median_ms / 1e3),
+          peak_memory_gib=peak_gb, launches=dict(launches),
+          launches_per_step={k: step_launches.get(k, 0)
+                             for k in ("snake", "snake_backward", "rvq")},
+          resumed_minus_uninterrupted_step3=resume_diff,
+          snake_census=[[list(k), v] for k, v in sorted(census.items())],
+          snake_backward=bwd_row, snake_forward=fwd_row,
+          snake_backward_shapes=bwd)
+    return {"snake_train": {**fwd_row, "launches": launches.get("snake", 0)},
+            "snake_backward": {**bwd_row, "launches": launches["snake_backward"]},
+            "per_step": per_step}
+
+
 def kernel_row(name, mode_row, **fields):
     return {"name": name, "route": "cuda", "library_ms": None,
             "bound_by": "bytes", **fields,
@@ -672,6 +841,9 @@ def main() -> int:
     pool_launches, chunks, pool_snake = pool_phase(model, gen)
     entropy_phase(model, serve_dac, chunks)
     reference_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    train_rows = train_phase(gen)
 
     source = {"source": "vrvq_tpu_torch/kernels/csrc/snake.cu",
               "replaces": "vrvq_tpu/ops/snake.py:33"}
@@ -710,6 +882,20 @@ def main() -> int:
          "bound_ms": rvq_pool["bound_ms"], "bound_by": rvq_pool["bound_by"],
          "library_ms": None,
          "per": f"launch at {rvq_pool['frames']} frames (a pool batch of 8)"},
+    ]
+    per_step = train_rows["per_step"]
+    kernels += [
+        kernel_row("snake_train", train_rows["snake_train"], **source,
+                   per=f"exact float32 forward, train step at batch 16 x 0.38 s: "
+                       f"{per_step} launches a step over "
+                       f"{train_rows['snake_train']['shapes']} shapes"),
+        kernel_row("snake_backward", train_rows["snake_backward"],
+                   source="vrvq_tpu_torch/kernels/csrc/snake.cu",
+                   replaces="vrvq_tpu/ops/snake.py:19 (no Pallas backward: "
+                            "XLA's autodiff of snake_reference)",
+                   per=f"train step at batch 16 x 0.38 s: {per_step} launches "
+                       f"a step over {train_rows['snake_backward']['shapes']} "
+                       f"shapes"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

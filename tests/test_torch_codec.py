@@ -177,7 +177,7 @@ def test_window_geometry_matches_jax(processors):
 
 BLOCKER = textwrap.dedent("""
     import importlib, pkgutil, sys
-    BLOCKED = {"jax", "jaxlib", "flax", "yaml", "vrvq_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "vrvq_tpu"}
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -199,6 +199,12 @@ BLOCKER = textwrap.dedent("""
         "nn.fold", "infer.fast", "infer.chunked", "infer.streaming",
         "infer.sweep", "ops.rangecoder", "ops.resample", "metrics")}
     assert serving <= walked, sorted(serving - walked)
+    training = {"vrvq_tpu_torch." + m for m in (
+        "ops.stft", "losses.recon", "losses.gan", "models.discriminator",
+        "data.loaders", "data.collate", "data.transforms", "train.schedule",
+        "train.state", "train.loop", "train.checkpoint", "train.tracker",
+        "train.trainer", "profile_train")}
+    assert training <= walked, sorted(training - walked)
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

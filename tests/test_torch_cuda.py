@@ -20,6 +20,13 @@ refilled), 28 stages at the flagship's width, no mask, clusters of 4, 2 and
 codebook shape the JAX kernel takes: d in {1, 2, 3, 4, 8, 16, 32} against D
 and K in {1024, 1000, 6} at F in {1, 72, 101} (d, D and K padded by the
 packing), through the wrapper and through ``CodecProcessor``.
+
+The training path: Snake's backward kernel against its plain version at
+every shape of the flagship train step's census and at edge shapes (dx
+bit-identical, dalpha within 1e-4 of its largest element, two launches
+bit-identical); a grad-requiring Snake on the card has a ``grad_fn`` and
+plain autograd's gradients; the modes without a backward and K1 raise under
+grad; one train step at the flagship width reaches every parameter.
 """
 
 import numpy as np
@@ -240,3 +247,111 @@ def test_codec_processor_serves_every_codebook_shape(cuda, overrides):
         near_tie = rvq_kernel.reference_margins(frames, *rvq.weights) <= 1e-5
     flipped = (codes[0].T != ref).any(dim=1)
     assert not (flipped & ~near_tie).any()
+
+
+# ------------------------------------------------------------ training path
+# K2's backward: the shapes of the flagship train step's Snake census (batch
+# 16 x 0.38 s), and edges: T = 1, short and odd rows, rows over one tile,
+# more tiles than a row of the census, a base pointer off 16 bytes
+SNAKE_TRAIN_CENSUS = [
+    (16, 8, 33), (16, 32, 33), (16, 64, 16896), (16, 96, 16896), (16, 128, 33),
+    (16, 128, 8448), (16, 192, 8448), (16, 256, 2112), (16, 384, 2112),
+    (16, 512, 33), (16, 512, 264), (16, 768, 264), (16, 1024, 33),
+    (16, 1536, 33)]
+SNAKE_BWD_EDGES = [(1, 1, 1), (2, 3, 5), (3, 7, 2049), (1, 5, 4097),
+                   (2, 64, 70001), (1, 2, 300000)]
+
+
+def _snake_bwd_inputs(shape, device, offset=0):
+    gen = torch.Generator().manual_seed(sum(shape) + offset)
+    n = int(np.prod(shape))
+    x = (3.0 * torch.randn(n + offset, generator=gen)).to(device)[offset:].view(shape)
+    alpha = (0.5 + torch.rand(shape[1], generator=gen)).to(device)
+    g = torch.randn(shape, generator=gen).to(device)
+    return x, alpha, g
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("shape", SNAKE_TRAIN_CENSUS + SNAKE_BWD_EDGES)
+def test_snake_backward_matches_plain_and_repeats_its_bits(cuda, shape, offset):
+    """dx bit-identical to the plain version (the same roundings), dalpha
+    within 1e-4 of max|dalpha| (a float32 sum in another order), and two
+    launches bit-identical (no atomics)."""
+    x, alpha, g = _snake_bwd_inputs(shape, cuda, offset)
+    before = LAUNCHES["snake_backward"]
+    dx, da = snake.snake_backward(x, alpha, g)
+    dx2, da2 = snake.snake_backward(x, alpha, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["snake_backward"] == before + 2
+    rdx, rda = snake.snake_backward_reference(x, alpha, g)
+    assert torch.equal(dx, rdx), (dx - rdx).abs().max()
+    assert (da - rda).abs().max() <= 1e-4 * rda.abs().max()
+    assert torch.equal(dx, dx2) and torch.equal(da, da2)
+
+
+def test_snake_on_the_card_has_a_gradient(cuda):
+    """A grad-requiring call goes through SnakeFunction: the result has a
+    grad_fn, and the gradients equal plain autograd's within 1e-5."""
+    x, alpha, g = _snake_bwd_inputs((2, 48, 1000), cuda)
+    xk, ak = x.clone().requires_grad_(True), alpha.clone().requires_grad_(True)
+    y = snake.snake(xk, ak)
+    assert type(y.grad_fn).__name__ == "SnakeFunctionBackward"
+    (y * g).sum().backward()
+    xp, ap = x.clone().requires_grad_(True), alpha.clone().requires_grad_(True)
+    (snake.snake_plain(xp, ap) * g).sum().backward()
+    torch.testing.assert_close(xk.grad, xp.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ak.grad, ap.grad, rtol=1e-4,
+                               atol=1e-4 * float(ap.grad.abs().max()))
+    with torch.no_grad():
+        assert snake.snake(xk, ak).grad_fn is None
+
+
+@pytest.mark.parametrize("mode", ["approx", "exact-bf16", "approx-bf16"])
+def test_snake_modes_without_backward_raise_on_the_card(cuda, mode):
+    dtype, approx = MODES[mode]
+    x = torch.randn(1, 4, 64, device=cuda).to(dtype)
+    alpha = torch.ones(4, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        snake.snake(x, alpha, approx)
+
+
+def test_fused_rvq_raises_under_grad_on_the_card(cuda):
+    model = port.build_model(port.small_config(), device=cuda)
+    w = rvq_kernel.stack_quantizer_weights(model.quantizer)  # requires grad
+    z = torch.randn(8, w.wi.shape[1], device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rvq_kernel.fused_rvq(z, *w)
+
+
+def test_flagship_train_step_reaches_every_parameter(cuda):
+    """One train step at the flagship width (batch 4 x 0.38 s): every
+    parameter of the generator and of the discriminator gets a non-zero
+    gradient, K2's backward runs once per Snake, K1 never."""
+    from vrvq_tpu_torch.config import FLAGSHIP_TRAIN
+    from vrvq_tpu_torch.losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
+    from vrvq_tpu_torch.models.discriminator import Discriminator
+    from vrvq_tpu_torch.train import loop, trainer
+    from vrvq_tpu_torch.train.state import TrainState, make_optimizer
+
+    draw = torch.Generator().manual_seed(0)
+    gen = port.init_params(port.DAC_VRVQ(port.FLAGSHIP), draw).to(cuda)
+    disc = port.init_params(Discriminator(
+        **trainer.cfg_kwargs(FLAGSHIP_TRAIN, "Discriminator")), draw).to(cuda)
+    state = TrainState(gen, disc, make_optimizer(gen.parameters(), max_grad_norm=1e3),
+                       make_optimizer(disc.parameters(), max_grad_norm=10.0))
+    step = loop.make_train_step(
+        FLAGSHIP_TRAIN["lambdas"],
+        MultiScaleSTFTLoss(**trainer.cfg_kwargs(FLAGSHIP_TRAIN, "MultiScaleSTFTLoss")),
+        MelSpectrogramLoss(**trainer.cfg_kwargs(FLAGSHIP_TRAIN, "MelSpectrogramLoss")),
+        L1Loss())
+    audio = torch.from_numpy(np.concatenate(
+        [port.synthetic_clip(0.38, 44100, s) for s in range(4)])).to(cuda)
+    LAUNCHES.clear()
+    metrics = step(state, audio, generator=trainer.step_generator(0, 0, cuda))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert LAUNCHES["snake_backward"] == LAUNCHES["snake"] == 64, dict(LAUNCHES)
+    assert LAUNCHES["rvq"] == 0
+    for net in (gen, disc):
+        for name, p in net.named_parameters():
+            assert p.grad is not None and torch.count_nonzero(p.grad) > 0, name

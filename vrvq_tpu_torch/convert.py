@@ -16,6 +16,12 @@ flax path ``encoder/block_0/res0/conv1/v`` is the port's state-dict key
 A folded tree (``vrvq_tpu.infer.fast.make_inference_model``) converts too:
 its ``w`` takes ``v``'s layout change, and a bfloat16 leaf stays bfloat16,
 for the port's folded modules (``nn/fold.py``).
+
+The discriminator converts likewise (``discriminator_state_dict_from_jax``):
+a 2-D conv ``v`` is flax ``(kh, kw, in, out)``, the port's ``(out, in, kh,
+kw)``. A gradient tree has its parameters' layout, so the same two functions
+map ``jax.grad``'s trees onto the port's keys, for comparing gradients leaf
+by leaf.
 """
 
 from __future__ import annotations
@@ -66,17 +72,39 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def discriminator_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``Discriminator``'s parameter (or gradient) tree -> the port's
+    ``state_dict``: ``mpd_2.conv_0.v`` and so on, 2-D conv ``v`` transposed
+    from ``(kh, kw, in, out)`` to ``(out, in, kh, kw)``."""
+    tree = params.get("params", params)
+    sd = {}
+    for key, value in _flatten(tree).items():
+        if key.endswith(".v") and value.ndim == 4:
+            value = np.transpose(value, (3, 2, 0, 1))
+        sd[key] = _tensor(value)
+    return sd
+
+
 def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
     return torch.rand(shape, generator=gen) * (2.0 * bound) - bound
 
 
 @torch.no_grad()
 def init_params(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
-    """Draw every parameter of ``model`` on the CPU from ``generator``, as the
-    JAX package initializes: conv and projection ``v`` uniform in
-    +-1/sqrt(fan_in), ``g = ||v||`` (so the effective weight is ``v``),
-    zero biases, codebooks N(0, 1), Snake alpha 1."""
+    """Draw every parameter of ``model`` (the codec or the discriminator) on
+    the CPU from ``generator``, as the JAX package initializes: conv and
+    projection ``v`` uniform in +-1/sqrt(fan_in), ``g = ||v||`` (so the
+    effective weight is ``v``), zero biases, codebooks N(0, 1), Snake
+    alpha 1."""
+    from .models.discriminator import WNConv2d
+
     for m in model.modules():
+        if isinstance(m, WNConv2d):
+            fan_in = m.v.shape[1] * m.v.shape[2] * m.v.shape[3]
+            v = _uniform(m.v.shape, 1.0 / math.sqrt(fan_in), generator)
+            m.v.copy_(v)
+            m.g.copy_(torch.sqrt(torch.sum(v * v, dim=(1, 2, 3))))
+            m.bias.zero_()
         if isinstance(m, (WNConv1d, WNConvTranspose1d)):
             cin = m.v.shape[1] if isinstance(m, WNConv1d) else m.v.shape[0]
             v = _uniform(m.v.shape, 1.0 / math.sqrt(cin * m.kernel_size), generator)

@@ -1,0 +1,209 @@
+"""Reproducible audio excerpts for training.
+
+Counterpart of ``vrvq_tpu/data/loaders.py`` (itself audiotools' loader):
+``AudioLoader`` scans source folders into per-source file lists and a
+shuffled flat index; ``AudioDataset[idx]`` seeds a ``numpy`` RandomState
+with ``idx`` and draws from it in the JAX package's order (the item, the
+excerpt's offset, the transform's parameters), so both packages give the
+same excerpt for the same index. An unreadable file gives silence, with one
+warning per path. Wav only; the aligned multi-loader mode is not ported.
+"""
+
+from __future__ import annotations
+
+import csv
+import struct
+import warnings
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
+
+from ..audio import Signal, random_state
+
+AUDIO_EXTENSIONS = [".wav"]
+
+
+def find_audio(folder, ext: Optional[List[str]] = None) -> List[Path]:
+    """Audio files under ``folder`` (recursive), sorted."""
+    ext = ext or AUDIO_EXTENSIONS
+    folder = Path(folder)
+    if folder.is_file() and folder.suffix.lower() in ext:
+        return [folder]
+    files = []
+    for e in ext:
+        files.extend(folder.rglob(f"*{e}"))
+    return sorted(set(files))
+
+
+def read_sources(sources: List[str], remove_empty: bool = True,
+                 relative_path: str = "",
+                 ext: Optional[List[str]] = None) -> List[List[Dict]]:
+    """One sorted list of ``{"path": ...}`` per source: a folder (scanned
+    recursively) or a csv with a ``path`` column."""
+    files = []
+    relative_path = Path(relative_path)
+    for source in map(str, sources):
+        found = []
+        if source.endswith(".csv"):
+            with open(source) as f:
+                for row in csv.DictReader(f):
+                    if remove_empty and row.get("path", "") == "":
+                        continue
+                    if row.get("path"):
+                        row["path"] = str(relative_path / row["path"])
+                    found.append(row)
+        else:
+            found = [{"path": str(relative_path / p)}
+                     for p in find_audio(source, ext=ext)]
+        files.append(sorted(found, key=lambda x: x["path"]))
+    return files
+
+
+def choose_from_list_of_lists(state, list_of_lists, p=None):
+    source_idx = state.choice(len(list_of_lists), p=p)
+    item_idx = state.randint(len(list_of_lists[source_idx]))
+    return list_of_lists[source_idx][item_idx], source_idx, item_idx
+
+
+class AudioLoader:
+    """Scans ``sources`` and draws reproducible excerpts from them."""
+
+    def __init__(self, sources: Optional[List[str]] = None,
+                 weights: Optional[List[float]] = None,
+                 relative_path: str = "", ext: Optional[List[str]] = None,
+                 shuffle: bool = True, shuffle_state: int = 0):
+        self.sources = sources or []
+        self.weights = weights
+        self.audio_lists = read_sources(self.sources, relative_path=relative_path,
+                                        ext=ext or AUDIO_EXTENSIONS)
+        self.audio_indices = [(s, i) for s, src in enumerate(self.audio_lists)
+                              for i in range(len(src))]
+        if shuffle:
+            random_state(shuffle_state).shuffle(self.audio_indices)
+        self._warned: set = set()
+
+    def _resolve(self, state, global_idx):
+        if global_idx is not None:
+            s, i = self.audio_indices[global_idx % len(self.audio_indices)]
+            return self.audio_lists[s][i], s, i
+        return choose_from_list_of_lists(state, self.audio_lists, p=self.weights)
+
+    def _load(self, path, state, sample_rate, duration, loudness_cutoff,
+              num_channels, offset) -> Signal:
+        if path == "none":
+            return Signal.zeros(duration, sample_rate, num_channels)
+        try:
+            if offset is not None:
+                return Signal.load(path, offset=offset, duration=duration)
+            if duration is None:
+                return Signal.load(path)
+            return Signal.salient_excerpt(path, duration=duration, state=state,
+                                          loudness_cutoff=loudness_cutoff)
+        except (OSError, ValueError, struct.error) as exc:
+            if str(path) not in self._warned:
+                self._warned.add(str(path))
+                warnings.warn(
+                    f"could not load audio file {path!r} ({type(exc).__name__}: "
+                    f"{exc}); substituting silence for every draw of this file",
+                    RuntimeWarning, stacklevel=3)
+            return Signal.zeros(duration, sample_rate, num_channels)
+
+    def __call__(self, state, sample_rate: int, duration: float,
+                 loudness_cutoff: float = -40, num_channels: int = 1,
+                 offset: Optional[float] = None,
+                 global_idx: Optional[int] = None) -> Dict:
+        state = random_state(state)
+        info, source_idx, item_idx = self._resolve(state, global_idx)
+        path = info["path"]
+        signal = self._load(path, state, sample_rate, duration,
+                            loudness_cutoff, num_channels, offset)
+        if num_channels == 1:
+            signal = signal.to_mono()
+        signal = signal.resample(sample_rate)
+        if duration is not None:
+            want = int(duration * sample_rate)
+            if signal.signal_length < want:
+                signal = signal.zero_pad_to(want)
+            signal = signal.truncate_samples(want)
+        signal.metadata.update(info)
+        item = {
+            "signal": signal,
+            "source_idx": source_idx,
+            "item_idx": item_idx,
+            "source": str(self.sources[source_idx]) if self.sources else "",
+            "path": str(path),
+        }
+        return item
+
+
+class AudioDataset:
+    """Item ``idx`` is drawn from ``RandomState(idx)``; with
+    ``without_replacement`` the index also picks the file (through the
+    loader's shuffled index), so every file comes round in turn."""
+
+    def __init__(self, loaders: Union[AudioLoader, List[AudioLoader],
+                                      Dict[str, AudioLoader]],
+                 sample_rate: int, n_examples: int = 1000,
+                 duration: float = 0.5, offset: Optional[float] = None,
+                 loudness_cutoff: float = -40, num_channels: int = 1,
+                 transform: Optional[Callable] = None,
+                 shuffle_loaders: bool = False,
+                 without_replacement: bool = True):
+        if isinstance(loaders, list):
+            loaders = dict(enumerate(loaders))
+        elif isinstance(loaders, AudioLoader):
+            loaders = {0: loaders}
+        self.loaders = loaders
+        self.sample_rate = sample_rate
+        self.length = n_examples
+        self.duration = duration
+        self.offset = offset
+        self.loudness_cutoff = loudness_cutoff
+        self.num_channels = num_channels
+        self.transform = transform
+        self.shuffle_loaders = shuffle_loaders
+        self.without_replacement = without_replacement
+
+    def __getitem__(self, idx: int) -> Dict:
+        state = random_state(idx)
+        keys = list(self.loaders)
+        if self.shuffle_loaders:
+            state.shuffle(keys)
+        kwargs = dict(state=state, sample_rate=self.sample_rate,
+                      duration=self.duration,
+                      loudness_cutoff=self.loudness_cutoff,
+                      num_channels=self.num_channels, offset=self.offset,
+                      global_idx=idx if self.without_replacement else None)
+        item = {key: self.loaders[key](**kwargs) for key in keys}
+        item = {k: item[k] for k in self.loaders}
+        item["idx"] = idx
+        if self.transform is not None:
+            first = next(iter(self.loaders))
+            item["transform_args"] = self.transform.instantiate(
+                state=state, signal=item[first]["signal"])
+        if len(self.loaders) == 1:
+            item.update(item.pop(next(iter(self.loaders))))
+        return item
+
+    def __len__(self) -> int:
+        return self.length
+
+    @staticmethod
+    def collate(list_of_dicts):
+        from .collate import collate
+
+        return collate(list_of_dicts)
+
+
+class ConcatDataset(AudioDataset):
+    """Round-robin over datasets by index."""
+
+    def __init__(self, datasets: list):
+        self.datasets = datasets
+
+    def __len__(self) -> int:
+        return sum(len(d) for d in self.datasets)
+
+    def __getitem__(self, idx: int):
+        return self.datasets[idx % len(self.datasets)][idx // len(self.datasets)]

@@ -42,6 +42,11 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
+    "vrvq_snake_backward": (
+        [_P] * 6 + [ctypes.c_longlong] * 3 + [_P],
+        ctypes.c_int,
+    ),
+    "vrvq_snake_backward_tiles": ([ctypes.c_longlong], ctypes.c_longlong),
     "vrvq_rvq_forward": (
         [_P] * 5 + [ctypes.c_int] * 7 + [_P],
         ctypes.c_int,

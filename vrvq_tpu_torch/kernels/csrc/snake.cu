@@ -1,6 +1,7 @@
-// Snake activation y = x + sin^2(alpha * x) / (alpha + 1e-9), forward only,
-// in four modes: the exact sin^2 or the polynomial one, on float32 or bfloat16
-// x and y (float32 alpha and arithmetic in every mode).
+// Snake activation y = x + sin^2(alpha * x) / (alpha + 1e-9): the forward in
+// four modes (the exact sin^2 or the polynomial one, on float32 or bfloat16
+// x and y; float32 alpha and arithmetic in every mode), and the backward of
+// the exact float32 mode (at the end of this file).
 //
 // Replaces the TPU kernel vrvq_tpu/ops/snake.py: snake_pallas -> _snake_kernel,
 // which streams channels-last (B, T, C) blocks through VMEM once. Here the
@@ -222,6 +223,158 @@ extern "C" int vrvq_snake_forward(const void* x, const float* alpha, void* y,
     return poly ? launch<__nv_bfloat16, true>(x, alpha, y, rows, channels, length, s)
                 : launch<__nv_bfloat16, false>(x, alpha, y, rows, channels, length, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------- backward
+//
+// The gradient of the exact float32 mode, for training. The JAX package has
+// no Pallas backward: XLA differentiates snake_reference and fuses the result
+// into the convs' epilogues. Eager PyTorch would launch ~8 kernels and keep
+// several temporaries per Snake, so the port computes it here, from x alone
+// (the forward saves only x). With u = alpha x, inv = 1 / (alpha + 1e-9):
+//
+//   dx     = g (1 + sin(2u) (alpha inv)),        sin(2u) = 2 sin(u) cos(u)
+//   dalpha = sum_{B,T} g (x sin(2u) inv - sin(u)^2 (inv inv))
+//
+// term for term as ops/snake.py: snake_backward_reference, every product and
+// sum rounded on its own (__fmul_rn, __fadd_rn), so dx is bit-identical to
+// the plain version; dalpha is a sum in another order and agrees to float32
+// rounding.
+//
+// Bound on the H100: bytes. Each element reads x and g and writes dx, 12
+// bytes, against one sinf, one cosf and ~12 flops; the dalpha partials are
+// (C, B * tiles) floats, a few KB.
+//
+// Design: simple and deterministic. The grid is (B * C rows, tiles of T), as
+// in the forward: a block works inside one row, so alpha and the two
+// per-channel factors are computed once per thread. Each thread loads its
+// kBwdPerThread elements of x and g (neighbouring threads on neighbouring
+// addresses) before it computes any. The block sums its dalpha terms with a
+// fixed shuffle tree and its warps' sums in warp order, and writes one
+// partial per (channel, batch, tile). A second launch gives each channel a
+// warp that adds its partials in a fixed order. No float atomics: two
+// launches on the same inputs give the same bits, so a resumed training run
+// replays an uninterrupted one as far as this kernel is concerned.
+
+namespace {
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdPerThread = 8;
+constexpr int kReduceWarps = 8;
+
+__host__ __device__ inline long long bwd_tiles(long long length) {
+  const long long per_tile = (long long)kBwdThreads * kBwdPerThread;
+  return (length + per_tile - 1) / per_tile;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__global__ void __launch_bounds__(kBwdThreads)
+snake_backward_kernel(const float* __restrict__ x,
+                      const float* __restrict__ alpha,
+                      const float* __restrict__ g, float* __restrict__ dx,
+                      float* __restrict__ partials, unsigned channels,
+                      unsigned tiles, long long per_channel, long long length) {
+  __shared__ float warp_sums[kBwdThreads / 32];
+  const unsigned row = blockIdx.x;
+  const unsigned c = row % channels;
+  const unsigned b = row / channels;
+  const float a = __ldg(alpha + c);
+  const float inv = 1.0f / (a + 1e-9f);
+  const float ai = __fmul_rn(a, inv);
+  const float ii = __fmul_rn(inv, inv);
+  const long long base = (long long)row * length;
+  const int nt = blockDim.x;
+  const long long start = (long long)blockIdx.y * nt * kBwdPerThread + threadIdx.x;
+
+  float xv[kBwdPerThread], gv[kBwdPerThread];
+#pragma unroll
+  for (int i = 0; i < kBwdPerThread; ++i) {
+    const long long e = start + (long long)i * nt;
+    xv[i] = e < length ? __ldg(x + base + e) : 0.0f;
+    gv[i] = e < length ? __ldg(g + base + e) : 0.0f;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kBwdPerThread; ++i) {
+    const long long e = start + (long long)i * nt;
+    if (e < length) {
+      const float u = __fmul_rn(a, xv[i]);
+      const float s = sinf(u);
+      const float s2u = __fmul_rn(__fmul_rn(2.0f, s), cosf(u));
+      dx[base + e] = __fmul_rn(gv[i], __fadd_rn(1.0f, __fmul_rn(s2u, ai)));
+      const float t = __fsub_rn(__fmul_rn(__fmul_rn(xv[i], s2u), inv),
+                                __fmul_rn(__fmul_rn(s, s), ii));
+      acc = __fadd_rn(acc, __fmul_rn(gv[i], t));
+    }
+  }
+  acc = warp_sum(acc);
+  const int warp = threadIdx.x / 32;
+  if ((threadIdx.x & 31) == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < nt / 32; ++w) total = __fadd_rn(total, warp_sums[w]);
+    partials[(long long)c * per_channel + (long long)b * tiles + blockIdx.y] = total;
+  }
+}
+
+__global__ void __launch_bounds__(kReduceWarps * 32)
+snake_alpha_reduce_kernel(const float* __restrict__ partials,
+                          float* __restrict__ dalpha, unsigned channels,
+                          long long per_channel) {
+  const unsigned c = blockIdx.x * kReduceWarps + threadIdx.x / 32;
+  if (c >= channels) return;  // whole warps leave together
+  const float* p = partials + (long long)c * per_channel;
+  float acc = 0.0f;
+  for (long long i = threadIdx.x & 31; i < per_channel; i += 32)
+    acc = __fadd_rn(acc, p[i]);
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) dalpha[c] = acc;
+}
+
+}  // namespace
+
+// Tiles of T per row: the partials buffer holds (C, B * this) floats.
+extern "C" long long vrvq_snake_backward_tiles(long long length) {
+  return length > 0 ? bwd_tiles(length) : 0;
+}
+
+// x, g, dx: (B, C, T) float32 contiguous; alpha, dalpha: (C,) float32;
+// partials: (C, B * vrvq_snake_backward_tiles(T)) float32 scratch. Two
+// launches on `stream`; returns the cudaError_t of the launches (0 on
+// success).
+extern "C" int vrvq_snake_backward(const float* x, const float* alpha,
+                                   const float* g, float* dx, float* partials,
+                                   float* dalpha, long long batch,
+                                   long long channels, long long length,
+                                   void* stream) {
+  if (batch <= 0 || channels <= 0 || length <= 0) return 0;
+  const long long rows = batch * channels;
+  const long long tiles = bwd_tiles(length);
+  if (rows > 0x7fffffffLL || tiles > (long long)kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  const long long per_thread = (long long)kBwdPerThread * tiles;
+  long long threads = (length + per_thread - 1) / per_thread;
+  threads = (threads + 31) / 32 * 32;
+  if (threads > kBwdThreads) threads = kBwdThreads;
+  const long long per_channel = batch * tiles;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  snake_backward_kernel<<<dim3((unsigned)rows, (unsigned)tiles),
+                          (unsigned)threads, 0, s>>>(
+      x, alpha, g, dx, partials, (unsigned)channels, (unsigned)tiles,
+      per_channel, length);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const unsigned blocks = (unsigned)((channels + kReduceWarps - 1) / kReduceWarps);
+  snake_alpha_reduce_kernel<<<blocks, kReduceWarps * 32, 0, s>>>(
+      partials, dalpha, (unsigned)channels, per_channel);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* vrvq_error_string(int err) {

@@ -1,6 +1,6 @@
 """DAC_VRVQ: the flagship variable-bitrate codec, Encoder -> VBR RVQ -> Decoder.
 
-Counterpart of ``vrvq_tpu/models/dac_vrvq.py`` in eval mode, in (B, C, T):
+Counterpart of ``vrvq_tpu/models/dac_vrvq.py``, in (B, C, T):
 audio ``(B, 1, T)``, latents ``(B, D, T')``, codes ``(B, Nq, T')``.
 ``padding=False`` builds the padding-free codec that chunked compression
 runs; ``clone(padding=...)`` gives the other variant on the same parameters.
@@ -8,7 +8,9 @@ A ``Profile`` sets how the conv stacks run at inference (the JAX model's
 inference fields, ``vrvq_tpu/models/dac_vrvq.py``): folded weight norm,
 the polynomial Snake, per stack, and the decoder's compute dtype; ``infer/fast.py``
 builds the fast and turbo profiles. The quantizer, with the importance
-subnet, always runs live in float32 with the exact Snake.
+subnet, always runs live in float32 with the exact Snake. ``forward(...,
+train=True)`` is the training forward: random levels and the batch partition
+of the quantizer, with its losses.
 """
 
 from __future__ import annotations
@@ -130,6 +132,10 @@ class DAC_VRVQ(nn.Module):
         self.quantizer = VBRResidualVectorQuantize(
             latent_dim, config.n_codebooks, config.codebook_size,
             config.codebook_dim, imp2mask_alpha=config.imp2mask_alpha,
+            quantizer_dropout=config.quantizer_dropout,
+            full_codebook_rate=config.full_codebook_rate,
+            level_min=config.level_min, level_max=config.level_max,
+            level_dist=config.level_dist,
         )
         self.decoder = Decoder(latent_dim, config.decoder_dim,
                                config.decoder_rates, padding=padding,
@@ -231,13 +237,24 @@ class DAC_VRVQ(nn.Module):
     def forward(self, audio_data: torch.Tensor,
                 sample_rate: Optional[int] = None,
                 n_quantizers: Optional[int] = None,
-                level: Optional[float] = 1.0) -> dict:
-        """preprocess -> encode -> decode, trimmed to the input length."""
+                level: Optional[float] = 1.0, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                levels: Optional[torch.Tensor] = None,
+                depths: Optional[Sequence[int]] = None) -> dict:
+        """preprocess -> encode -> decode, trimmed to the input length.
+
+        ``train=True`` is the training forward (the quantizer's random
+        levels from ``generator``, or ``levels``/``depths`` pinned) and adds
+        ``vq/commitment_loss`` and ``vq/codebook_loss``; ``imp_map`` then
+        holds the importance-masked rows only."""
         length = audio_data.shape[-1]
         audio_data = self.preprocess(audio_data, sample_rate)
-        q = self.encode(audio_data, n_quantizers, level)
+        z, feat = self.encoder(audio_data, return_feat=True)
+        q = self.quantizer(z, n_quantizers=n_quantizers, feat_enc=feat,
+                           level=level, train=train, generator=generator,
+                           levels=levels, depths=depths)
         audio = self.decoder(q["z_q"])[..., :length]
-        return {
+        out = {
             "audio": audio,
             "z": q["z_q"],
             "codes": q["codes"],
@@ -245,3 +262,7 @@ class DAC_VRVQ(nn.Module):
             "imp_map": q["imp_map"],
             "mask_imp": q["mask_imp"],
         }
+        if train:
+            out["vq/commitment_loss"] = q["commitment_loss"]
+            out["vq/codebook_loss"] = q["codebook_loss"]
+        return out

@@ -1,21 +1,28 @@
-"""Variable-bitrate residual vector quantization, eval mode.
+"""Variable-bitrate residual vector quantization, in eval and train mode.
 
 Counterpart of ``vrvq_tpu/models/quantize.py`` (``VectorQuantize`` and
 ``VBRResidualVectorQuantize``). Tensors are ``(B, D, T)`` at every public
 method; the nearest-codebook search flattens frames to rows. Distances are
 float32 and the argmax keeps the first maximum, as in the JAX module.
-Training (random levels, dropout partitions, losses) and the CBR-only
-``ResidualVectorQuantize`` are not ported.
+
+Train mode draws one level per clip and partitions the batch into
+importance-masked, random-depth (dropout) and full-codebook rows; the draws
+come from a ``torch.Generator`` or are passed in (``levels``, ``depths``).
+The straight-through estimator and the mask's are detached as the JAX
+module's ``stop_gradient``: the encoder gets the gradient of z_q, the
+importance subnet that of the smooth mask. The CBR-only
+``ResidualVectorQuantize`` is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..ops.masks import generate_mask_ste
+from ..ops.masks import generate_mask_hard, generate_mask_ste
 from .importance import ImportanceSubnet
 from .wn_dense import WNDense1x1
 
@@ -36,12 +43,19 @@ class VectorQuantize(nn.Module):
         self.out_proj = WNDense1x1(codebook_dim, input_dim)
         self.codebook = nn.Parameter(torch.empty(codebook_size, codebook_dim))
 
-    def forward(self, z: torch.Tensor):
-        """z (B, D, T) -> (z_q (B, D, T), indices (B, T), z_e (B, d, T))."""
+    def forward(self, z: torch.Tensor, losses: bool = False):
+        """z (B, D, T) -> (z_q (B, D, T), indices (B, T), z_e (B, d, T)), and
+        with ``losses`` the per-frame commitment and codebook losses (B, T)
+        after them."""
         z_e = self.in_proj(z)
         z_q, indices = self.decode_latents(z_e)
-        z_q = z_e + (z_q - z_e)
-        return self.out_proj(z_q), indices, z_e
+        out = ()
+        if losses:
+            commitment = torch.mean(torch.square(z_e - z_q.detach()), dim=1)
+            codebook = torch.mean(torch.square(z_q - z_e.detach()), dim=1)
+            out = (commitment, codebook)
+        z_q = z_e + (z_q - z_e).detach()  # straight-through
+        return (self.out_proj(z_q), indices, z_e) + out
 
     def decode_code(self, embed_id: torch.Tensor) -> torch.Tensor:
         """(B, T) indices -> (B, d, T) codebook rows."""
@@ -63,14 +77,24 @@ class VectorQuantize(nn.Module):
 
 class VBRResidualVectorQuantize(nn.Module):
     """All Nq stages run on the residual; a per-frame importance map gates how
-    many each frame keeps (VBR at a ``level``), or ``n_quantizers`` stages
-    are kept everywhere (CBR)."""
+    many each frame keeps (VBR at a ``level``, or at random levels in
+    train mode), or ``n_quantizers`` stages are kept everywhere (CBR)."""
 
     def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
-                 codebook_dim: int, imp2mask_alpha: float = 1.0):
+                 codebook_dim: int, imp2mask_alpha: float = 1.0,
+                 quantizer_dropout: float = 0.0,
+                 full_codebook_rate: float = 0.0,
+                 level_min: Optional[float] = None,
+                 level_max: Optional[float] = None,
+                 level_dist: str = "uniform"):
         super().__init__()
         self.n_codebooks = n_codebooks
         self.imp2mask_alpha = imp2mask_alpha
+        self.quantizer_dropout = quantizer_dropout
+        self.full_codebook_rate = full_codebook_rate
+        self.level_min = level_min
+        self.level_max = level_max
+        self.level_dist = level_dist
         for i in range(n_codebooks):
             self.add_module(f"quantizers_{i}",
                             VectorQuantize(input_dim, codebook_size,
@@ -92,15 +116,46 @@ class VBRResidualVectorQuantize(nn.Module):
             imp_map = imp_map[..., lo:lo + frames]
         return imp_map
 
+    def partition(self, batch: int):
+        """``(n_imps, n_dropout, n_full)``: the train batch's importance-masked,
+        random-depth and full-codebook rows, truncated with ``int`` as in
+        JAX."""
+        n_full = int(batch * self.full_codebook_rate)
+        n_dropout = int(batch * self.quantizer_dropout)
+        return batch - n_full - n_dropout, n_dropout, n_full
+
+    def random_levels(self, u: torch.Tensor) -> torch.Tensor:
+        """Levels from uniform draws ``u`` in [0, 1): uniform or log-uniform
+        in ``[level_min, level_max]``."""
+        lo, hi = self.level_min, self.level_max
+        if lo is None or hi is None or not lo < hi:
+            raise ValueError(
+                f"train mode needs level_min < level_max, got {lo}, {hi}")
+        if self.level_dist == "uniform":
+            return u * (hi - lo) + lo
+        if self.level_dist == "log_uniform":
+            return torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
+        raise ValueError(f"Invalid level_dist {self.level_dist!r}")
+
     def forward(self, z: torch.Tensor, n_quantizers: Optional[int] = None,
                 feat_enc: Optional[torch.Tensor] = None,
-                level: Optional[float] = None) -> dict:
+                level: Optional[float] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                levels: Optional[torch.Tensor] = None,
+                depths: Optional[Sequence[int]] = None) -> dict:
         """z, feat_enc (B, D, T). Returns z_q (B, D, T), z_q_is
         (B, n, D, T), codes (B, n, T), latents (B, n*d, T), imp_map
-        (B, 1, T) or None and mask_imp (B, n, T)."""
+        (B, 1, T) or None and mask_imp (B, n, T).
+
+        ``train=True`` (VBR only) draws each clip's level from ``generator``
+        (or takes ``levels (B,)``), gives the dropout rows depths drawn in
+        [1, Nq] (or ``depths``), adds the masked ``commitment_loss`` and
+        ``codebook_loss`` and keeps the importance rows of ``imp_map``."""
         bs, _, frames = z.shape
         vbr = n_quantizers is None
-        if vbr and level is None:
+        if train and not vbr:
+            raise ValueError("train mode is VBR only (n_quantizers=None)")
+        if vbr and not train and level is None:
             raise ValueError("level must be specified in VBR inference")
         if not vbr and not 1 <= int(n_quantizers) <= self.n_codebooks:
             raise ValueError(
@@ -110,18 +165,29 @@ class VBRResidualVectorQuantize(nn.Module):
         n_stages = self.n_codebooks if vbr else int(n_quantizers)
 
         residual = z
-        z_q_is, codes, latents = [], [], []
+        z_q_is, codes, latents, commits, cbs = [], [], [], [], []
         for quantizer in self.quantizers[:n_stages]:
-            z_q_i, indices_i, z_e_i = quantizer(residual)
+            z_q_i, indices_i, z_e_i, *stage_losses = quantizer(residual, train)
             z_q_is.append(z_q_i)
             residual = residual - z_q_i
             codes.append(indices_i)
             latents.append(z_e_i)
+            if train:
+                commits.append(stage_losses[0])
+                cbs.append(stage_losses[1])
 
         if vbr:
             imp_map = self.importance(feat_enc, frames)
+            if train:
+                if levels is None:
+                    levels = self.random_levels(torch.rand(
+                        (bs, 1, 1), generator=generator, device=z.device,
+                        dtype=z.dtype))
+                scale = levels.reshape(bs, 1, 1).to(z)
+            else:
+                scale = level
             mask_imp = generate_mask_ste(
-                imp_map * level * self.n_codebooks, self.n_codebooks,
+                imp_map * scale * self.n_codebooks, self.n_codebooks,
                 alpha=self.imp2mask_alpha,
             )
         else:
@@ -130,15 +196,40 @@ class VBRResidualVectorQuantize(nn.Module):
             mask_imp = torch.ones((bs, n_stages, frames), dtype=z.dtype,
                                   device=z.device)
 
+        n_imps = bs
+        if train:
+            n_imps, n_dropout, n_full = self.partition(bs)
+            parts = [mask_imp[:n_imps]]
+            if n_dropout > 0:
+                if depths is None:
+                    depths = torch.randint(
+                        1, self.n_codebooks + 1, (n_dropout,),
+                        generator=generator, device=z.device)
+                depths = torch.as_tensor(depths, device=z.device).to(z.dtype)
+                parts.append(generate_mask_hard(
+                    depths.reshape(n_dropout, 1, 1).expand(n_dropout, 1, frames),
+                    self.n_codebooks))
+            if n_full > 0:
+                parts.append(torch.ones((n_full, self.n_codebooks, frames),
+                                        dtype=z.dtype, device=z.device))
+            mask_imp = torch.cat(parts, dim=0)
+
         z_q_is = torch.stack(z_q_is, dim=1)
-        return {
+        out = {
             "z_q": torch.sum(z_q_is * mask_imp[:, :, None, :], dim=1),
             "z_q_is": z_q_is,
             "codes": torch.stack(codes, dim=1),
             "latents": torch.cat(latents, dim=1),
-            "imp_map": imp_map,
+            "imp_map": imp_map[:n_imps] if imp_map is not None else None,
             "mask_imp": mask_imp,
         }
+        if train:
+            mask_sg = mask_imp.detach()
+            out["commitment_loss"] = torch.mean(
+                torch.sum(torch.stack(commits, dim=1) * mask_sg, dim=1))
+            out["codebook_loss"] = torch.mean(
+                torch.sum(torch.stack(cbs, dim=1) * mask_sg, dim=1))
+        return out
 
     def from_codes(self, codes: torch.Tensor,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:

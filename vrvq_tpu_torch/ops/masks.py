@@ -2,8 +2,8 @@
 
 The scaled importance map ``x (B, 1, T)`` is compared with the stage
 thresholds 0..Nq-1: stage i is kept for a frame iff ``x - i >= 0``. Masks are
-``(B, Nq, T)``. Serving only: the straight-through form keeps the eval value
-``smooth + (hard - smooth)`` of the JAX code, with no gradient path.
+``(B, Nq, T)``. The straight-through mask has the hard mask's value and the
+smooth mask's gradient, as in the JAX code.
 """
 
 from __future__ import annotations
@@ -38,11 +38,12 @@ def _stage_thresholds(nq: int, x: torch.Tensor) -> torch.Tensor:
 
 
 def generate_mask_ste(x: torch.Tensor, nq: int, alpha: float = 1.0) -> torch.Tensor:
-    """Eval value of the straight-through mask: ``smooth + (hard - smooth)``."""
+    """Straight-through mask ``smooth + stop_grad(hard - smooth)``: the hard
+    mask's value, the logcosh smooth mask's gradient."""
     xmnq = x - _stage_thresholds(nq, x)
     mask_smooth = logcosh(alpha, xmnq)
     mask_quant = (xmnq >= 0).to(x.dtype)
-    return mask_smooth + (mask_quant - mask_smooth)
+    return mask_smooth + (mask_quant - mask_smooth).detach()
 
 
 def generate_mask_hard(x: torch.Tensor, nq: int) -> torch.Tensor:

@@ -198,7 +198,9 @@ def fused_rvq(
     """Fused RVQ with optional VBR gating.
 
     z (F, D) frames; mask (F, Nq) stage gate (1 = keep) or None for all
-    stages. Returns (z_q (F, D), codes (F, Nq) int32)."""
+    stages. Returns (z_q (F, D), codes (F, Nq) int32). The kernel has no
+    backward: an input that requires grad under grad mode raises."""
+    _check_no_grad(z, wi, bi, wo, bo, cb, mask)
     if z.device.type == "cpu":
         return fused_rvq_reference(z, wi, bi, wo, bo, cb, mask)
     if z.device.type != "cuda":
@@ -206,6 +208,17 @@ def fused_rvq(
     weights = RVQWeights(wi, bi, wo, bo, cb)
     _check(z, weights, mask)
     return fused_rvq_prepared(z, prepare_rvq(weights), mask)
+
+
+def _check_no_grad(*tensors) -> None:
+    """Raise where a gradient would be wanted: the kernel has none, and the
+    training path runs the per-stage module quantizer instead."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "fused_rvq: the kernel has no backward; call it under "
+            "torch.no_grad() or torch.inference_mode() (training runs the "
+            "module quantizer)")
 
 
 def _check(z, weights: RVQWeights, mask) -> None:
@@ -238,6 +251,7 @@ def fused_rvq_prepared(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``fused_rvq`` on weights that ``prepare_rvq`` has prepared."""
     w = prepared.weights
+    _check_no_grad(z, prepared.packed, mask, *w)
     if z.device.type == "cpu":
         return fused_rvq_reference(z, *w, mask)
     if z.device.type != "cuda":

@@ -9,6 +9,13 @@ Four modes, chosen at the call: the exact ``sin^2`` or the polynomial one of
 the JAX ``snake_approx`` (``approx=True``), each on float32 or bfloat16 ``x``.
 Arithmetic is float32 in every mode, and a bfloat16 result is rounded once,
 as the JAX layer computes ``snake_approx`` in float32 and casts back.
+
+Training differentiates the exact float32 mode: ``SnakeFunction`` runs the
+forward kernel and, in backward, the port's own backward kernel (the JAX
+package gets this gradient from XLA's autodiff of ``snake_reference``),
+saving only ``x``. ``snake`` routes a call that needs a gradient there; the
+modes with no backward (polynomial, bfloat16) raise under grad, on either
+device, rather than return a result that drops its gradient.
 """
 
 from __future__ import annotations
@@ -38,12 +45,18 @@ def mode_name(dtype: torch.dtype, approx: bool) -> str:
             + ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
+def _wide(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for float64
+    input (for ``gradcheck``)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def snake_reference(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Plain version of the exact mode. Mirrors the JAX ``snake_reference``
     term for term in float32: the reciprocal first, then the product with
     ``s * s``; the result in ``x``'s dtype."""
-    xf = x.float()
-    a = alpha.float().reshape(1, -1, 1)
+    xf = x.to(_wide(x))
+    a = alpha.to(xf.dtype).reshape(1, -1, 1)
     s = torch.sin(a * xf)
     return (xf + (1.0 / (a + 1e-9)) * (s * s)).to(x.dtype)
 
@@ -78,15 +91,29 @@ def snake_plain(x: torch.Tensor, alpha: torch.Tensor,
     return snake_reference(x, alpha)
 
 
-def snake(x: torch.Tensor, alpha: torch.Tensor,
-          approx: bool = False) -> torch.Tensor:
-    """Snake through the kernel for a CUDA tensor, the plain version for a
-    CPU tensor. Takes float32 or bfloat16 ``x (B, C, T)`` contiguous and
-    float32 ``alpha (C,)``; ``approx`` picks the polynomial ``sin^2``."""
-    if x.device.type == "cpu":
-        return snake_plain(x, alpha, approx)
-    if x.device.type != "cuda":
-        raise ValueError(f"snake: unsupported device {x.device}")
+def snake_backward_reference(x: torch.Tensor, alpha: torch.Tensor,
+                             grad: torch.Tensor):
+    """Plain version of the backward kernel: ``(dx (B, C, T), dalpha (C,))``
+    of the exact mode for the output gradient ``grad``, with u = alpha x,
+    inv = 1 / (alpha + 1e-9) and sin(2u) = 2 sin(u) cos(u):
+
+        dx     = g (1 + sin(2u) (alpha inv))
+        dalpha = sum over B, T of g (x sin(2u) inv - sin(u)^2 (inv inv))
+
+    in this order of operations, each rounded on its own (the kernel's)."""
+    xf = x.to(_wide(x))
+    g = grad.to(xf.dtype)
+    a = alpha.to(xf.dtype).reshape(1, -1, 1)
+    inv = 1.0 / (a + 1e-9)
+    u = a * xf
+    s = torch.sin(u)
+    s2u = (2.0 * s) * torch.cos(u)
+    dx = g * (1.0 + s2u * (a * inv))
+    terms = g * ((xf * s2u) * inv - (s * s) * (inv * inv))
+    return dx.to(x.dtype), torch.sum(terms, dim=(0, 2)).to(alpha.dtype)
+
+
+def _check_operands(x: torch.Tensor, alpha: torch.Tensor) -> None:
     if x.dtype not in DTYPES or alpha.dtype != torch.float32:
         raise TypeError(
             f"snake: x must be float32 or bfloat16 and alpha float32, got "
@@ -100,6 +127,51 @@ def snake(x: torch.Tensor, alpha: torch.Tensor,
         raise ValueError("snake: x and alpha must be contiguous")
     if alpha.device != x.device:
         raise ValueError("snake: x and alpha must be on the same device")
+
+
+def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor):
+    """``(dx, dalpha)`` of the exact float32 mode: the backward kernel for
+    CUDA tensors, ``snake_backward_reference`` for CPU tensors. One pass
+    writes dx and per-block partial sums of dalpha into a ``(C, B * tiles)``
+    buffer, a second launch sums each channel's row in a fixed order: no
+    atomics, so two launches on the same inputs give the same bits."""
+    if x.device.type == "cpu":
+        return snake_backward_reference(x, alpha, grad)
+    if x.device.type != "cuda":
+        raise ValueError(f"snake_backward: unsupported device {x.device}")
+    _check_operands(x, alpha)
+    if x.dtype != torch.float32:
+        raise TypeError("snake_backward: only the float32 mode has a backward")
+    grad = grad.contiguous()
+    if grad.shape != x.shape or grad.dtype != x.dtype or grad.device != x.device:
+        raise ValueError(
+            f"snake_backward: grad {tuple(grad.shape)} {grad.dtype} does not "
+            f"match x {tuple(x.shape)} {x.dtype}")
+    b, c, t = x.shape
+    dx = torch.empty_like(x)
+    dalpha = torch.empty_like(alpha)
+    if x.numel() == 0:
+        return dx, dalpha.zero_()
+    lib = library()
+    partials = torch.empty((c, b * lib.vrvq_snake_backward_tiles(t)),
+                           dtype=torch.float32, device=x.device)
+    err = lib.vrvq_snake_backward(
+        x.data_ptr(), alpha.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+        partials.data_ptr(), dalpha.data_ptr(), b, c, t,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    LAUNCHES["snake_backward"] += 1
+    check(err, "snake_backward")
+    return dx, dalpha
+
+
+def _forward(x: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tensor:
+    """The forward kernel (CUDA) or the plain version (CPU)."""
+    if x.device.type == "cpu":
+        return snake_plain(x, alpha, approx)
+    if x.device.type != "cuda":
+        raise ValueError(f"snake: unsupported device {x.device}")
+    _check_operands(x, alpha)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -111,3 +183,39 @@ def snake(x: torch.Tensor, alpha: torch.Tensor,
     LAUNCHES[mode_name(x.dtype, approx)] += 1
     check(err, "snake")
     return y
+
+
+class SnakeFunction(torch.autograd.Function):
+    """The exact mode with its gradient: forward through ``_forward``,
+    backward through ``snake_backward``; saves ``x`` and ``alpha``."""
+
+    @staticmethod
+    def forward(ctx, x, alpha):
+        ctx.save_for_backward(x, alpha)
+        return _forward(x, alpha, False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, alpha = ctx.saved_tensors
+        dx, dalpha = snake_backward(x, alpha, grad)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dalpha if ctx.needs_input_grad[1] else None)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor,
+          approx: bool = False) -> torch.Tensor:
+    """Snake through the kernel for a CUDA tensor, the plain version for a
+    CPU tensor. Takes float32 or bfloat16 ``x (B, C, T)`` contiguous and
+    float32 ``alpha (C,)``; ``approx`` picks the polynomial ``sin^2``.
+
+    Where a gradient is wanted (grad mode on and ``x`` or ``alpha``
+    requiring grad), the exact float32 mode goes through ``SnakeFunction``
+    and the other modes raise: they have no backward."""
+    if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad):
+        if approx or x.dtype != torch.float32:
+            raise RuntimeError(
+                f"snake: the {mode_name(x.dtype, approx)} mode has no "
+                "backward; run it under torch.no_grad() or "
+                "torch.inference_mode(), or train with the exact float32 mode")
+        return SnakeFunction.apply(x, alpha)
+    return _forward(x, alpha, approx)

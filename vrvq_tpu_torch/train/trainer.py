@@ -1,0 +1,227 @@
+"""Training orchestration: config -> state -> steps, with validation and
+tagged checkpoints, resumable.
+
+Counterpart of ``vrvq_tpu/train/trainer.py``. ``cfg`` is a plain dict with
+the merged YAML's keys (``config.FLAGSHIP_TRAIN``): ``"DAC_VRVQ.n_codebooks"``,
+scoped ``"train/AudioDataset.duration"``, ``"lambdas"`` and so on. Batches
+are drawn by index (step * batch_size + i), so a resumed run reads what an
+uninterrupted one would; each step's random levels come from a
+``torch.Generator`` seeded from ``(seed, step)``, as the JAX trainer folds
+the step into its key. Data are loaded on the host between steps (no
+prefetch thread); the transforms run on the device. Not ported: the split
+and accumulated steps, data parallelism, sample logging and TensorBoard.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .. import disable_tf32, resolve_device
+from ..config import model_config
+from ..convert import init_params
+from ..data.loaders import AudioDataset, AudioLoader, ConcatDataset
+from ..data.transforms import build_transform
+from ..losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
+from ..models.dac_vrvq import DAC_VRVQ
+from ..models.discriminator import Discriminator
+from . import checkpoint as ckpt
+from .loop import make_train_step, make_val_step
+from .state import TrainState, make_optimizer
+from .tracker import Tracker
+
+
+def cfg_kwargs(cfg: Mapping, prefix: str, scope: Optional[str] = None) -> Dict:
+    """``{prefix}.{name}`` keys as kwargs, ``{scope}/{prefix}.{name}`` over
+    them."""
+    out = {k[len(prefix) + 1:]: v for k, v in cfg.items()
+           if k.startswith(prefix + ".")}
+    if scope is not None:
+        want = f"{scope}/{prefix}."
+        out.update({k[len(want):]: v for k, v in cfg.items() if k.startswith(want)})
+    return out
+
+
+def cfg_get(cfg: Mapping, key: str, scope: Optional[str] = None, default=None):
+    if scope is not None and f"{scope}/{key}" in cfg:
+        return cfg[f"{scope}/{key}"]
+    return cfg.get(key, default)
+
+
+@dataclasses.dataclass
+class State:
+    """What ``train`` builds and returns: the networks and optimizers
+    (``train_state``), the steps, losses, data and tracker, and each train
+    step's metrics and host times (ms, after the device finished)."""
+
+    train_state: TrainState
+    train_step: Callable
+    val_step: Callable
+    train_data: Any
+    val_data: Any
+    tracker: Tracker
+    device: torch.device
+    metrics: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    step_ms: List[float] = dataclasses.field(default_factory=list)
+    data_ms: List[float] = dataclasses.field(default_factory=list)
+
+
+def build_dataset(cfg: Mapping, sample_rate: int, scope: str):
+    """The scope's (``train``/``val``) dataset over its folders, with its
+    transform."""
+    transform = build_transform(
+        augment_prob=cfg_get(cfg, "build_transform.augment_prob", scope, 1.0),
+        preprocess=cfg_get(cfg, "build_transform.preprocess", scope),
+        augment=cfg_get(cfg, "build_transform.augment", scope),
+        postprocess=cfg_get(cfg, "build_transform.postprocess", scope),
+    )
+    folders = cfg_get(cfg, "build_dataset.folders", scope, {}) or {}
+    datasets = [
+        AudioDataset(AudioLoader(sources=sources, **cfg_kwargs(cfg, "AudioLoader", scope)),
+                     sample_rate, transform=transform,
+                     **cfg_kwargs(cfg, "AudioDataset", scope))
+        for sources in folders.values()
+    ]
+    dataset = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
+    dataset.transform = transform
+    return dataset
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The step's generator, seeded from ``(seed, step)`` alone."""
+    key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(key)
+
+
+def load_batch(dataset, step: int, batch_size: int) -> Dict:
+    """The collated items ``step * batch_size + i`` (mod the dataset)."""
+    n = max(len(dataset), 1)
+    items = [dataset[(step * batch_size + i) % n] for i in range(batch_size)]
+    return dataset.collate(items)
+
+
+@torch.no_grad()
+def prepare_audio(dataset, batch: Dict, device: torch.device) -> torch.Tensor:
+    """The batch's audio on ``device``, through the dataset's transform."""
+    audio = torch.from_numpy(np.ascontiguousarray(batch["signal"].audio_data)).to(device)
+    return dataset.transform(audio, **batch.get("transform_args", {})).contiguous()
+
+
+def load(cfg: Mapping, tracker: Tracker, save_path, resume: bool = False,
+         tag: str = "latest", device: torch.device = torch.device("cpu")) -> State:
+    """Build the networks (drawn from ``seed``, or resumed from ``tag``),
+    optimizers, steps and datasets."""
+    seed = int(cfg.get("seed", 0))
+    draw = torch.Generator().manual_seed(seed)
+    generator = init_params(DAC_VRVQ(model_config(cfg)), draw).to(device)
+    discriminator = init_params(
+        Discriminator(**cfg_kwargs(cfg, "Discriminator")), draw).to(device)
+
+    adamw, explr = cfg_kwargs(cfg, "AdamW"), cfg_kwargs(cfg, "ExponentialLR")
+    opt_kw = dict(lr=adamw.get("lr", 1e-4), betas=tuple(adamw.get("betas", (0.8, 0.99))),
+                  gamma=explr.get("gamma", 1.0), warmup=explr.get("warmup", 0))
+    train_state = TrainState(
+        generator, discriminator,
+        make_optimizer(generator.parameters(), max_grad_norm=1e3, **opt_kw),
+        make_optimizer(discriminator.parameters(), max_grad_norm=10.0, **opt_kw))
+
+    waveform_loss = L1Loss()
+    stft_loss = MultiScaleSTFTLoss(**cfg_kwargs(cfg, "MultiScaleSTFTLoss"))
+    mel_kw = cfg_kwargs(cfg, "MelSpectrogramLoss")
+    mel_kw.setdefault("sample_rate", generator.sample_rate)
+    mel_loss = MelSpectrogramLoss(**mel_kw)
+    lambdas = cfg.get("lambdas", {})
+
+    if resume:
+        tracker.print(f"Resuming from {save_path}/{tag}")
+        ckpt.load_checkpoint(save_path, train_state, tag)
+        meta = ckpt.load_metadata(save_path, tag)
+        tracker.load_state_dict(meta.get("tracker", {}))
+        tracker.step = train_state.step
+
+    return State(
+        train_state=train_state,
+        train_step=make_train_step(lambdas, stft_loss, mel_loss, waveform_loss),
+        val_step=make_val_step(stft_loss, mel_loss, waveform_loss),
+        train_data=build_dataset(cfg, generator.sample_rate, "train"),
+        val_data=build_dataset(cfg, generator.sample_rate, "val"),
+        tracker=tracker,
+        device=device,
+    )
+
+
+def validate(state: State, batch_size: int) -> Dict[str, float]:
+    """The val step over the whole val set; its means, logged as ``val``."""
+    n = len(state.val_data)
+    for start in range(0, n, batch_size):
+        items = [state.val_data[i] for i in range(start, min(start + batch_size, n))]
+        audio = prepare_audio(state.val_data, state.val_data.collate(items),
+                              state.device)
+        out = state.val_step(state.train_state.generator, audio)
+        values = torch.stack([v.float() for v in out.values()]).tolist()
+        state.tracker.log_metrics("val", dict(zip(out, values)))
+    return state.tracker.done("val", f"Iteration {state.tracker.step}")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(cfg: Mapping, save_path: str = "ckpt", device=None) -> State:
+    """Train for ``num_iters`` steps (from the ``latest`` checkpoint with
+    ``resume``), validating and saving at every ``valid_freq``-th step and
+    the last. Runs on the card unless ``device`` says otherwise; float32
+    with TF32 off, as the JAX package trains (``amp: false``)."""
+    device = resolve_device("cuda" if device is None else device)
+    disable_tf32()
+    latest = Path(save_path) / "latest"
+    # A fresh run pointed at a directory that holds a checkpoint would
+    # overwrite it at its first save: demand resume or overwrite_ok.
+    if (not cfg.get("resume", False) and not cfg.get("overwrite_ok", False)
+            and ((latest / "meta.json").exists() or (latest / ckpt.STATE_FILE).exists())):
+        raise FileExistsError(
+            f"{str(save_path)!r} already contains checkpoints; set resume: true "
+            "to continue that run, overwrite_ok: true to discard it, or pick a "
+            "fresh save_path")
+    Path(save_path).mkdir(parents=True, exist_ok=True)
+    tracker = Tracker(log_file=str(Path(save_path) / "log.txt"))
+    state = load(cfg, tracker, save_path, resume=cfg.get("resume", False),
+                 tag=cfg.get("tag", "latest"), device=device)
+
+    seed = int(cfg.get("seed", 0))
+    batch_size = int(cfg.get("batch_size", 12))
+    val_batch_size = int(cfg.get("val_batch_size", 10))
+    num_iters = int(cfg.get("num_iters", 250000))
+    save_iters = cfg.get("save_iters", []) or []
+    valid_freq = int(cfg.get("valid_freq", 1000))
+    for step in range(tracker.step, num_iters):
+        tracker.step = step
+        t0 = time.perf_counter()
+        audio = prepare_audio(state.train_data,
+                              load_batch(state.train_data, step, batch_size), device)
+        _sync(device)
+        t1 = time.perf_counter()
+        metrics = state.train_step(state.train_state, audio,
+                                   generator=step_generator(seed, step, device))
+        values = torch.stack([v.float().to(device) for v in metrics.values()]).tolist()
+        _sync(device)
+        t2 = time.perf_counter()
+        state.data_ms.append(1e3 * (t1 - t0))
+        state.step_ms.append(1e3 * (t2 - t1))
+        state.metrics.append(dict(zip(metrics, values)))
+        tracker.log_metrics("train", state.metrics[-1])
+        last = step == num_iters - 1
+        if step % valid_freq == 0 or last:
+            validate(state, val_batch_size)
+            tags = ckpt.checkpoint_tags(step, save_iters,
+                                        tracker.is_best("val", "mel/loss"))
+            tracker.print(f"Saving to {save_path} tags={tags}")
+            ckpt.save_checkpoint(state.train_state, save_path, tags,
+                                 metadata={"tracker": tracker.state_dict()})
+    return state
