@@ -2,8 +2,8 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It builds
-the kernels (one ``nvcc`` call), then runs nine phases and prints one line
-for each:
+the kernels (one ``nvcc`` call), then runs eleven phases and prints one
+line for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
            the kernel build time;
@@ -58,7 +58,27 @@ for each:
            launches of K2's forward and backward per step (K1 never); K2's
            backward against its plain version at every shape of the train
            step's Snake census (errors, bit-identity of two launches, device
-           time against its bound), and K2's forward over the same census.
+           time against its bound), and K2's forward over the same census;
+  configs  every file of ``conf/`` read by the port's YAML reader; the CBR
+           flagship built from ``conf/original_dac/cbr.yml`` serves the 10 s
+           clip at 8 and 4 stages, and the 24 kbps model from
+           ``conf/vrvq/vrvq_a2_24k.yml`` (28 codebooks) at level 1, each
+           through K1 against the port's plain path (flips on near ties
+           only, decode SI-SDR), with K1 timed at 28 stages on a window;
+  cli      ``python -m vrvq_tpu_torch.cli.train`` on
+           ``conf/vrvq/vrvq_a2_b64_1chip.yml`` at flagship width (batch 64 as
+           4 micro-batches of 16 x 0.38 s, the polynomial Snake in both
+           stacks), pointed at 32 seeded wavs and cut to 3 steps with a
+           validation of one batch of 16 x 0.38 s (each override printed as
+           a reduction): the polynomial backward kernel launched, every
+           parameter a non-zero gradient, finite falling losses, ms a step,
+           clips a second, peak memory; its step-1 checkpoint loaded here
+           and held bit for bit against the file, and that step taken here
+           again under the census of both Snake modes; the train CLI on
+           ``conf/original_dac/cbr.yml`` for 2 steps at batch 16; the
+           inference CLI's level sweep of one 1 s example from the first
+           run's last checkpoint; K2's polynomial forward and backward
+           against their plain versions over the accumulated step's census.
 
 Times are device times with a cold L2 (``vrvq_tpu_torch.kernel_times``: a
 CUDA graph of launches, each after a copy that evicts the L2 cache, less the
@@ -66,8 +86,8 @@ graph of copies alone), taken on the inputs that the kernel was compared on.
 Then a JSON line of the kernels on the main paths (K2 in each mode summed
 over the census of the path that runs it, each shape weighted by its
 launches, and over the pool's census; K1 at one window's 72 frames and at a
-pool batch's 576; K2's forward and backward over the train step's census),
-each
+pool batch's 576, and at 28 stages; K2's forward and backward over the train
+step's census, in the exact and in the polynomial mode), each
 with the launches of its path (counts cleared just before the path runs,
 read just after), the card's ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -92,7 +112,7 @@ import vrvq_tpu_torch as port
 from vrvq_tpu_torch import kernel_times as kt
 from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
-from vrvq_tpu_torch.config import FLAGSHIP_TRAIN
+from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config, model_config
 from vrvq_tpu_torch.kernels import build
 from vrvq_tpu_torch.metrics import si_sdr
 from vrvq_tpu_torch.models.quantize import VBRResidualVectorQuantize
@@ -131,11 +151,27 @@ TRAIN_STEPS = 4  # 3 through train(), the 4th resumed from `latest`
 # and dalpha's over max|dalpha| (a float32 sum in another order)
 SNAKE_BWD_DX_TOL = 1e-6
 SNAKE_BWD_DALPHA_TOL = 1e-4
+SNAKE_APPROX_BWD_DALPHA_TOL = 1e-6
+# the cli phase: conf/vrvq/vrvq_a2_b64_1chip.yml (batch 64 as 4 micro-batches
+# of 16 x 0.38 s, the polynomial Snake in both stacks) through the train CLI,
+# then conf/original_dac/cbr.yml at batch 16, then the inference CLI
+B64_YAML = "conf/vrvq/vrvq_a2_b64_1chip.yml"
+CBR_YAML = "conf/original_dac/cbr.yml"
+CLI_STEPS = 3
+CBR_STEPS = 2
+CLI_TIMEOUT_S = 420
 RVQ_WIDE_SHAPES = [(8, 1024, 1024, d) for d in (1, 2, 3, 16, 32)] + [
     (8, 1000, 1000, 8), (8, 6, 6, 8)]
 
 
+_LAST_PHASE = [time.perf_counter()]
+
+
 def phase(name: str, **fields) -> None:
+    """One phase's JSON line, with the seconds since the last one ended."""
+    now = time.perf_counter()
+    fields["phase_s"] = now - _LAST_PHASE[0]
+    _LAST_PHASE[0] = now
     print(f"{name} " + json.dumps(fields), flush=True)
 
 
@@ -234,18 +270,19 @@ def serve_clip(model):
     return port.Signal(port.synthetic_clip(10.0, sr, SEED), sr)
 
 
-def serve(model, signal):
-    """The serving path of ``model`` on ``signal``: compress (VBR at level 1,
-    1 s windows, fused quantizer), the ``.dac`` saved and loaded,
-    decompress. A warm-up round trip (cuBLAS/cuDNN handles, allocator) takes
-    the census of the Snake kernel's (mode, shape) -> launches; the launch
-    counts are cleared just before the timed round trip and read just
-    after."""
+def serve(model, signal, **request):
+    """The serving path of ``model`` on ``signal``: compress (``request``:
+    VBR at level 1 by default, or a CBR ``n_quantizers``; 1 s windows, fused
+    quantizer), the ``.dac`` saved and loaded, decompress. A warm-up round
+    trip (cuBLAS/cuDNN handles, allocator) takes the census of the Snake
+    kernel's (mode, shape) -> launches; the launch counts are cleared just
+    before the timed round trip and read just after."""
     proc = port.CodecProcessor(model, fused_quantizer=True)
+    request = request or {"level": 1.0}
 
     def round_trip(tmp):
         t0 = time.perf_counter()
-        dac = proc.compress(signal, win_duration=WINDOW_S, level=1.0)
+        dac = proc.compress(signal, win_duration=WINDOW_S, **request)
         t1 = time.perf_counter()
         path = dac.save(Path(tmp) / "clip.dac")
         loaded = port.DACFile.load(path)
@@ -657,11 +694,20 @@ def reference_phase(model):
           own_decode_si_sdr_db=si_sdr(out["audio"][None], fixture["audio"][None]))
 
 
+def write_wavs(wav_dir: Path) -> Path:
+    """``TRAIN_WAVS`` seeded 1 s clips at 44.1 kHz in ``wav_dir``."""
+    wav_dir.mkdir()
+    for i in range(TRAIN_WAVS):
+        port.Signal(port.synthetic_clip(1.0, 44100, SEED + 100 + i),
+                    44100).write(wav_dir / f"clip_{i:02d}.wav")
+    return wav_dir
+
+
 def train_config(wav_dir: Path) -> dict:
-    """The flagship's training dict on ``wav_dir``, at batch 16 x 0.38 s,
-    3 steps with a validation (one batch of 16 clips of 0.38 s) and a save
-    at steps 0 and 2."""
-    cfg = dict(FLAGSHIP_TRAIN)
+    """The flagship's training config (``conf/vrvq/vrvq_a2.yml``) as a dict
+    on ``wav_dir``, at batch 16 x 0.38 s, 3 steps with a validation (one
+    batch of 16 clips of 0.38 s) and a save at steps 0 and 2."""
+    cfg = Config.load(FLAGSHIP_YAML, base_dir=REPO).to_dict()
     cfg.update({
         "train/build_dataset.folders": {"music": [str(wav_dir)]},
         "val/build_dataset.folders": {"music": [str(wav_dir)]},
@@ -694,27 +740,80 @@ def same_bits(a, b, where: str = "") -> None:
         assert a == b, (where, a, b)
 
 
-def snake_backward_check(shape, gen):
-    """K2's backward against its plain version at ``shape``, timed."""
+def snake_backward_check(shape, gen, approx: bool = False):
+    """K2's backward in the float32 mode of ``approx`` against its plain
+    version at ``shape``, timed."""
     x, alpha = kt.snake_inputs(shape, gen)
     g = torch.randn(shape, generator=gen).to(DEVICE)
-    out = kt.time_snake_backward(snake_ops, x, alpha, g)
+    out = kt.time_snake_backward(snake_ops, x, alpha, g, approx=approx)
+    dalpha_tol = SNAKE_APPROX_BWD_DALPHA_TOL if approx else SNAKE_BWD_DALPHA_TOL
     assert out["bit_identical"], (shape, out)
     assert out["dx_rel_err"] <= SNAKE_BWD_DX_TOL, (shape, out)
-    assert out["dalpha_rel_err"] <= SNAKE_BWD_DALPHA_TOL, (shape, out)
+    assert out["dalpha_rel_err"] <= dalpha_tol, (shape, out)
     return out
+
+
+def config_serve(model, signal, **request):
+    """``serve`` of ``model`` at ``request``, against the port's plain path
+    on the same clip: code flips split by near ties (the smallest top-2
+    margin over all of the frame's stages), VBR counts, and the SI-SDR of the
+    kernel decode against the plain decode of the same ``.dac``."""
+    run = serve(model, signal, **request)
+    dac = run["dac"]
+    plain = MarginProcessor(model)
+    ref = plain.compress(signal, win_duration=WINDOW_S, **request)
+    near_tie = np.concatenate(plain.margins, axis=-1) <= TIE_MARGIN
+    split = flips(dac.codes, ref.codes, near_tie)
+    assert split["flipped_off_tie"] == 0, f"{request}: codes differ off near ties: {split}"
+    if "level" in request:
+        assert np.array_equal(dac.vbr_counts, ref.vbr_counts), request
+    else:
+        assert dac.vbr_counts is None and dac.codes.shape[1] == request["n_quantizers"]
+    sdr = si_sdr(run["out"].audio_data, plain.decompress(dac).audio_data)
+    assert sdr >= MIN_SISDR_DB, (request, sdr)
+    assert run["launches"]["rvq"] > 0, run["launches"]
+    return {"request": request, "codes_shape": list(dac.codes.shape), **split,
+            "decode_si_sdr_db": sdr, "dac_bytes": run["dac_bytes"],
+            "launches": run["launches"],
+            **{k: run[k] for k in ("encode_rtf", "decode_rtf")}}
+
+
+def configs_phase(gen):
+    """Every file of ``conf/`` through the port's reader; the CBR flagship
+    (``conf/original_dac/cbr.yml``) at 8 and 4 stages and the 24 kbps model
+    (``conf/vrvq/vrvq_a2_24k.yml``, 28 codebooks) at level 1 serve the
+    10 s clip through K1; K1 timed at 28 stages on a window."""
+    files = sorted(p.relative_to(REPO) for p in (REPO / "conf").rglob("*.yml"))
+    cfgs = {str(p): Config.load(p, base_dir=REPO) for p in files}
+    rows = {}
+    cbr = port.build_model(model_config(cfgs["conf/original_dac/cbr.yml"]),
+                           device=DEVICE, seed=SEED)
+    signal = serve_clip(cbr)
+    for nq in (8, 4):
+        rows[f"cbr_nq{nq}"] = config_serve(cbr, signal, n_quantizers=nq)
+    cbr_params = sum(p.numel() for p in cbr.parameters())
+    del cbr
+    m24 = port.build_model(model_config(cfgs["conf/vrvq/vrvq_a2_24k.yml"]),
+                           device=DEVICE, seed=SEED)
+    assert m24.n_codebooks == NQ_24KBPS
+    rows["24kbps_level1"] = config_serve(m24, signal, level=1.0)
+    window_frames = port.CodecProcessor(m24).window_geometry(WINDOW_S)[2]
+    with torch.inference_mode():
+        rvq_28 = rvq_check(rvq_ops.stack_quantizer_weights(m24.quantizer), gen,
+                           window_frames)
+    phase("configs", files=len(files), cbr_params=cbr_params,
+          params_24kbps=sum(p.numel() for p in m24.parameters()),
+          rvq_24kbps_window=rvq_28, **rows)
+    del m24
+    torch.cuda.empty_cache()
+    return {**rvq_28, "launches": rows["24kbps_level1"]["launches"]["rvq"]}
 
 
 def train_phase(gen):
     """See the module docstring. Returns the kernel rows of K2's forward and
     backward over the train step's census."""
     with tempfile.TemporaryDirectory() as tmp:
-        wav_dir = Path(tmp) / "wavs"
-        wav_dir.mkdir()
-        for i in range(TRAIN_WAVS):
-            port.Signal(port.synthetic_clip(1.0, 44100, SEED + 100 + i),
-                        44100).write(wav_dir / f"clip_{i:02d}.wav")
-        cfg = train_config(wav_dir)
+        cfg = train_config(write_wavs(Path(tmp) / "wavs"))
         save = Path(tmp) / "ckpt"
         torch.cuda.reset_peak_memory_stats()
         build.LAUNCHES.clear()
@@ -799,6 +898,169 @@ def train_phase(gen):
             "per_step": per_step}
 
 
+def start_cli(module: str, args):
+    """Start ``python -m vrvq_tpu_torch.cli.<module> *args`` from the repo
+    root; ``finish_cli`` waits for it."""
+    cmd = [sys.executable, "-m", f"vrvq_tpu_torch.cli.{module}", *map(str, args)]
+    return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def finish_cli(started, timeout: float = CLI_TIMEOUT_S):
+    """The started CLI's last line of output (the train CLI's JSON summary)
+    and its seconds; it must exit 0 within ``timeout``."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, (proc.args, out[-2000:], err[-4000:])
+    return out.strip().splitlines()[-1], time.perf_counter() - t0
+
+
+
+def cli_overrides(wav_dir: Path, save: Path, steps: int, **extra) -> dict:
+    """What points a config of ``conf/`` at the smoke's wavs and shortens its
+    run: ``steps`` steps, a validation of one batch of 16 x 0.38 s (at the
+    first and the last step, as the trainer validates), the save path."""
+    folders = {"music": [str(wav_dir)]}
+    return {"train/build_dataset.folders": folders,
+            "val/build_dataset.folders": folders, "num_iters": steps,
+            "val/AudioDataset.duration": TRAIN_DURATION_S,
+            "val/AudioDataset.n_examples": TRAIN_BATCH,
+            "val_batch_size": TRAIN_BATCH, "save_path": str(save), **extra}
+
+
+def argv(overrides: dict):
+    return [a for k, v in overrides.items() for a in (f"--{k}", repr(v))]
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def cli_phase(gen):
+    """The train CLI on ``vrvq_a2_b64_1chip.yml`` at flagship width for
+    ``CLI_STEPS`` accumulated steps (the polynomial backward launched, every
+    parameter a non-zero gradient, finite falling losses); its step-1
+    checkpoint loaded in this process and held bit for bit against the
+    file, then one more accumulated step here under the Snake census (both
+    modes, the launches of a step); the train CLI on ``cbr.yml`` for
+    ``CBR_STEPS`` steps at batch 16; the inference CLI on the first run's
+    last checkpoint, one example of 1 s. Returns the kernel rows of the
+    polynomial forward and backward over the accumulated step's census."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir = write_wavs(Path(tmp) / "wavs")
+        save = Path(tmp) / "b64"
+        over = cli_overrides(wav_dir, save, CLI_STEPS, save_iters=[0])
+        cfg = Config.load(B64_YAML, base_dir=REPO)
+        cfg.update(over)
+        batch = int(cfg["batch_size"])
+        micro = batch // int(cfg["grad_accum_steps"])
+        line, b64_s = finish_cli(start_cli("train", ["--args.load", B64_YAML,
+                                                      *argv(over)]))
+        b64 = json.loads(line)
+        launches = b64["launches"]
+        assert b64["steps"] == CLI_STEPS and b64["device"] == torch.cuda.get_device_name(0)
+        assert launches.get("snake_approx_backward", 0) > 0, launches
+        assert launches.get("snake_approx", 0) > 0 and launches.get("rvq", 0) == 0
+        assert not b64["params_without_gradient"], b64["params_without_gradient"]
+        losses = [m["loss"] for m in b64["metrics"]]
+        assert all(np.isfinite(v) for m in b64["metrics"] for v in m.values())
+        assert losses[-1] < losses[0], losses
+        assert all(m["other/batch_size"] == batch for m in b64["metrics"])
+
+        # the step-1 checkpoint, loaded here, against the file bit for bit
+        state = trainer.load(cfg, trainer.Tracker(), save, resume=True, tag="0k",
+                             device=DEVICE)
+        saved = torch.load(save / "0k" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        ts = state.train_state
+        assert ts.step == saved["step"] == 1
+        for name in ("generator", "discriminator", "opt_g", "opt_d"):
+            same_bits(to_cpu(getattr(ts, name).state_dict()), saved[name], name)
+        del saved
+
+        # step 1 again, here, under the census of both Snake modes
+        audio = trainer.prepare_audio(
+            state.train_data, trainer.load_batch(state.train_data, 1, batch),
+            torch.device(DEVICE))
+        with kt.snake_census(ts.generator, by_mode=True) as census:
+            build.LAUNCHES.clear()
+            metrics = state.train_step(ts, audio, generator=trainer.step_generator(
+                SEED, 1, torch.device(DEVICE)))
+            torch.cuda.synchronize()
+            step_launches = dict(build.LAUNCHES)
+        step1 = {k: v.item() for k, v in metrics.items()}
+        fwd = of_mode(census, "snake_approx")
+        # the generator runs twice a micro-batch (the discriminator's phase
+        # without a graph), so each shape's backward launches are half its
+        # forward's
+        bwd = {s: n // 2 for s, n in fwd.items()}
+        assert step_launches["snake_approx"] == sum(fwd.values()), step_launches
+        assert step_launches["snake_approx_backward"] == sum(bwd.values()), step_launches
+        assert all(sh[0] == micro for sh in fwd), fwd
+        del state, ts, audio
+        torch.cuda.empty_cache()
+
+        # the CBR run and the sweep of the first run's checkpoint, side by side
+        cbr_save, results = Path(tmp) / "cbr", Path(tmp) / "results"
+        cbr_run = start_cli("train", ["--args.load", CBR_YAML, *argv(cli_overrides(
+            wav_dir, cbr_save, CBR_STEPS, batch_size=TRAIN_BATCH))])
+        infer_run = start_cli("inference", [
+            "--args.load", B64_YAML, "--ckpt_dir", save, "--tag", "latest",
+            "--data_dir", wav_dir, "--save_result_dir", results,
+            "--num_examples", 1, "--duration", 1.0])
+        line, cbr_s = finish_cli(cbr_run)
+        _, infer_s = finish_cli(infer_run)
+        cbr = json.loads(line)
+        assert cbr["steps"] == CBR_STEPS and not cbr["params_without_gradient"]
+        assert all(np.isfinite(v) for m in cbr["metrics"] for v in m.values())
+        assert cbr["launches"].get("snake_backward", 0) > 0
+        assert "vq/rate_loss" not in cbr["metrics"][0]
+        meta = json.loads((results / "0" / "metadata.json").read_text())
+        pngs = sorted(p.name for p in (results / "0").glob("imp_map_*.png"))
+        assert len(meta) == len(pngs) == 12, (meta, pngs)
+
+    gen_fwd = [snake_check(sh, gen, "snake_approx") for sh in sorted(fwd)]
+    gen_bwd = [snake_backward_check(sh, gen, approx=True) for sh in sorted(bwd)]
+    fwd_row, bwd_row = census_row(gen_fwd, fwd), census_row(gen_bwd, bwd)
+    bwd_row.update(dx_rel_err=max(c["dx_rel_err"] for c in gen_bwd),
+                   dalpha_rel_err=max(c["dalpha_rel_err"] for c in gen_bwd))
+    step_ms = b64["step_ms"]
+    median_ms = float(np.median(step_ms[1:]))
+    phase("cli", config=B64_YAML,
+          reductions={"num_iters": CLI_STEPS, "val/AudioDataset.n_examples": TRAIN_BATCH,
+                      "val_batch_size": TRAIN_BATCH,
+                      "val/AudioDataset.duration": TRAIN_DURATION_S,
+                      "save_iters": [0], "folders": f"{TRAIN_WAVS} seeded 1 s wavs"},
+          batch=batch, micro_batch=micro, steps=b64["steps"], step_ms=step_ms,
+          data_ms=b64["data_ms"], median_step_ms_2_to_3=median_ms,
+          clips_per_s=batch / (median_ms / 1e3), peak_memory_gib=b64["peak_memory_gib"],
+          losses=b64["metrics"], launches=launches, cli_train_s=b64_s,
+          step1_here=step1, launches_per_step=step_launches,
+          snake_census=[[list(k), v] for k, v in sorted(census.items())],
+          snake_approx_forward=fwd_row, snake_approx_backward=bwd_row,
+          cbr={"config": CBR_YAML, "batch": TRAIN_BATCH, "steps": cbr["steps"],
+               "losses": cbr["metrics"], "launches": cbr["launches"],
+               "peak_memory_gib": cbr["peak_memory_gib"]},
+          inference={"examples": 1, "duration_s": 1.0, "levels": len(meta),
+                     "metadata": meta},
+          # the two processes shared the card, so no step time of the CBR
+          # run is kept and their seconds are not those of either alone
+          cbr_and_inference_cli_s_sharing_the_card=[cbr_s, infer_s])
+    return {"snake_approx_train": {**fwd_row, "launches": launches["snake_approx"]},
+            "snake_approx_backward": {**bwd_row,
+                                      "launches": launches["snake_approx_backward"]},
+            "per_step": {"forward": sum(fwd.values()), "backward": sum(bwd.values())}}
+
+
 def kernel_row(name, mode_row, **fields):
     return {"name": name, "route": "cuda", "library_ms": None,
             "bound_by": "bytes", **fields,
@@ -843,7 +1105,10 @@ def main() -> int:
     reference_phase(model)
     del model
     torch.cuda.empty_cache()
+    rvq_24kbps = configs_phase(gen)
     train_rows = train_phase(gen)
+    torch.cuda.empty_cache()
+    cli_rows = cli_phase(gen)
 
     source = {"source": "vrvq_tpu_torch/kernels/csrc/snake.cu",
               "replaces": "vrvq_tpu/ops/snake.py:33"}
@@ -882,6 +1147,12 @@ def main() -> int:
          "bound_ms": rvq_pool["bound_ms"], "bound_by": rvq_pool["bound_by"],
          "library_ms": None,
          "per": f"launch at {rvq_pool['frames']} frames (a pool batch of 8)"},
+        {"name": "fused_rvq_24kbps", "route": "cuda", **rvq_source,
+         **{k: rvq_24kbps[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")},
+         "library_ms": None,
+         "per": f"launch at {rvq_24kbps['frames']} frames, 28 stages "
+                f"(vrvq_a2_24k.yml's serve path, 10 s clip)"},
     ]
     per_step = train_rows["per_step"]
     kernels += [
@@ -896,6 +1167,20 @@ def main() -> int:
                    per=f"train step at batch 16 x 0.38 s: {per_step} launches "
                        f"a step over {train_rows['snake_backward']['shapes']} "
                        f"shapes"),
+    ]
+    per = cli_rows["per_step"]
+    kernels += [
+        kernel_row("snake_approx_train", cli_rows["snake_approx_train"], **source,
+                   per=f"polynomial float32 forward, {B64_YAML} step (4 x 16 x "
+                       f"0.38 s): {per['forward']} launches a step over "
+                       f"{cli_rows['snake_approx_train']['shapes']} shapes"),
+        kernel_row("snake_approx_backward", cli_rows["snake_approx_backward"],
+                   source="vrvq_tpu_torch/kernels/csrc/snake.cu",
+                   replaces="vrvq_tpu/ops/snake.py:89 (no Pallas backward: "
+                            "XLA's autodiff of snake_approx)",
+                   per=f"{B64_YAML} step (4 x 16 x 0.38 s): {per['backward']} "
+                       f"launches a step over "
+                       f"{cli_rows['snake_approx_backward']['shapes']} shapes"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -205,6 +205,9 @@ BLOCKER = textwrap.dedent("""
         "train.state", "train.loop", "train.checkpoint", "train.tracker",
         "train.trainer", "profile_train")}
     assert training <= walked, sorted(training - walked)
+    configured = {"vrvq_tpu_torch." + m for m in (
+        "config", "cli", "cli.train", "cli.inference")}
+    assert configured <= walked, sorted(configured - walked)
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -21,12 +21,14 @@ codebook shape the JAX kernel takes: d in {1, 2, 3, 4, 8, 16, 32} against D
 and K in {1024, 1000, 6} at F in {1, 72, 101} (d, D and K padded by the
 packing), through the wrapper and through ``CodecProcessor``.
 
-The training path: Snake's backward kernel against its plain version at
+The training path: Snake's backward kernel in both float32 modes (exact,
+and the polynomial of ``vrvq_a2_fast.yml``) against its plain version at
 every shape of the flagship train step's census and at edge shapes (dx
 bit-identical, dalpha within 1e-4 of its largest element, two launches
 bit-identical); a grad-requiring Snake on the card has a ``grad_fn`` and
-plain autograd's gradients; the modes without a backward and K1 raise under
-grad; one train step at the flagship width reaches every parameter.
+plain autograd's gradients; the bfloat16 modes and K1 raise under grad; one
+train step at the flagship width reaches every parameter. The CBR codec and
+a 28-stage codec serve through K1 as the plain path does.
 """
 
 import numpy as np
@@ -289,6 +291,71 @@ def test_snake_backward_matches_plain_and_repeats_its_bits(cuda, shape, offset):
     assert torch.equal(dx, dx2) and torch.equal(da, da2)
 
 
+# the polynomial mode's backward: the census and three odd shapes
+SNAKE_APPROX_ODD = [(1, 1, 1), (3, 7, 2049), (2, 64, 70001)]
+
+
+@pytest.mark.parametrize("shape", SNAKE_TRAIN_CENSUS + SNAKE_APPROX_ODD)
+def test_snake_approx_backward_matches_plain_and_repeats_its_bits(cuda, shape):
+    """The polynomial mode: dx bit-identical to
+    ``snake_approx_backward_reference``, dalpha within 1e-4 of max|dalpha|,
+    two launches bit-identical."""
+    x, alpha, g = _snake_bwd_inputs(shape, cuda)
+    x = 4.0 * x  # |alpha x| past 20: many periods of the reduction
+    before = LAUNCHES["snake_approx_backward"]
+    dx, da = snake.snake_backward(x, alpha, g, approx=True)
+    dx2, da2 = snake.snake_backward(x, alpha, g, approx=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["snake_approx_backward"] == before + 2
+    rdx, rda = snake.snake_approx_backward_reference(x, alpha, g)
+    assert torch.equal(dx, rdx), (dx - rdx).abs().max()
+    assert (da - rda).abs().max() <= 1e-4 * rda.abs().max()
+    assert torch.equal(dx, dx2) and torch.equal(da, da2)
+
+
+def test_polynomial_snake_on_the_card_has_a_gradient(cuda):
+    """A grad-requiring polynomial call goes through SnakeFunction, and its
+    gradients equal plain autograd's through the polynomial within 1e-5."""
+    x, alpha, g = _snake_bwd_inputs((2, 48, 1000), cuda)
+    xk, ak = x.clone().requires_grad_(True), alpha.clone().requires_grad_(True)
+    y = snake.snake(xk, ak, approx=True)
+    assert type(y.grad_fn).__name__ == "SnakeFunctionBackward"
+    (y * g).sum().backward()
+    xp, ap = x.clone().requires_grad_(True), alpha.clone().requires_grad_(True)
+    (snake.snake_plain(xp, ap, approx=True) * g).sum().backward()
+    torch.testing.assert_close(xk.grad, xp.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ak.grad, ap.grad, rtol=1e-4,
+                               atol=1e-4 * float(ap.grad.abs().max()))
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(model_type="CBR", quantizer_dropout=0.5), dict(n_codebooks=28)],
+    ids=["cbr", "28-stages"])
+def test_serve_path_kernels_match_plain_path(cuda, overrides):
+    """The CBR codec (at 4 and 2 stages) and a 28-stage VBR codec (the
+    24 kbps config's stage count) through ``CodecProcessor`` in 0.5 s
+    windows: K1 on the card against the plain path, codes equal but for
+    near-tie flips (under 1 %), VBR counts identical."""
+    model = port.build_model(port.small_config(**overrides), device=cuda, seed=3)
+    plain = model.clone(padding=True).use_kernels(False)
+    sig = port.Signal(np.random.RandomState(4).randn(44100).astype(np.float32) * 0.2,
+                      44100)
+    requests = ([dict(n_quantizers=4), dict(n_quantizers=2)]
+                if overrides.get("model_type") == "CBR" else [dict(level=1.0)])
+    for req in requests:
+        before = LAUNCHES["rvq"]
+        kernel_path = port.CodecProcessor(model, fused_quantizer=True).compress(
+            sig, win_duration=0.5, **req)
+        assert LAUNCHES["rvq"] > before
+        plain_path = port.CodecProcessor(plain, fused_quantizer=False).compress(
+            sig, win_duration=0.5, **req)
+        assert kernel_path.codes.shape == plain_path.codes.shape
+        assert (kernel_path.codes != plain_path.codes).mean() < 0.01
+        if "level" in req:
+            np.testing.assert_array_equal(kernel_path.vbr_counts,
+                                          plain_path.vbr_counts)
+
+
 def test_snake_on_the_card_has_a_gradient(cuda):
     """A grad-requiring call goes through SnakeFunction: the result has a
     grad_fn, and the gradients equal plain autograd's within 1e-5."""
@@ -306,7 +373,7 @@ def test_snake_on_the_card_has_a_gradient(cuda):
         assert snake.snake(xk, ak).grad_fn is None
 
 
-@pytest.mark.parametrize("mode", ["approx", "exact-bf16", "approx-bf16"])
+@pytest.mark.parametrize("mode", ["exact-bf16", "approx-bf16"])
 def test_snake_modes_without_backward_raise_on_the_card(cuda, mode):
     dtype, approx = MODES[mode]
     x = torch.randn(1, 4, 64, device=cuda).to(dtype)
@@ -327,23 +394,22 @@ def test_flagship_train_step_reaches_every_parameter(cuda):
     """One train step at the flagship width (batch 4 x 0.38 s): every
     parameter of the generator and of the discriminator gets a non-zero
     gradient, K2's backward runs once per Snake, K1 never."""
-    from vrvq_tpu_torch.config import FLAGSHIP_TRAIN
+    from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config
     from vrvq_tpu_torch.losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
     from vrvq_tpu_torch.models.discriminator import Discriminator
     from vrvq_tpu_torch.train import loop, trainer
     from vrvq_tpu_torch.train.state import TrainState, make_optimizer
 
+    cfg = Config.load(FLAGSHIP_YAML, base_dir=REPO)
     draw = torch.Generator().manual_seed(0)
     gen = port.init_params(port.DAC_VRVQ(port.FLAGSHIP), draw).to(cuda)
-    disc = port.init_params(Discriminator(
-        **trainer.cfg_kwargs(FLAGSHIP_TRAIN, "Discriminator")), draw).to(cuda)
+    disc = port.init_params(Discriminator(**cfg.kwargs("Discriminator")),
+                            draw).to(cuda)
     state = TrainState(gen, disc, make_optimizer(gen.parameters(), max_grad_norm=1e3),
                        make_optimizer(disc.parameters(), max_grad_norm=10.0))
     step = loop.make_train_step(
-        FLAGSHIP_TRAIN["lambdas"],
-        MultiScaleSTFTLoss(**trainer.cfg_kwargs(FLAGSHIP_TRAIN, "MultiScaleSTFTLoss")),
-        MelSpectrogramLoss(**trainer.cfg_kwargs(FLAGSHIP_TRAIN, "MelSpectrogramLoss")),
-        L1Loss())
+        cfg["lambdas"], MultiScaleSTFTLoss(**cfg.kwargs("MultiScaleSTFTLoss")),
+        MelSpectrogramLoss(**cfg.kwargs("MelSpectrogramLoss")), L1Loss())
     audio = torch.from_numpy(np.concatenate(
         [port.synthetic_clip(0.38, 44100, s) for s in range(4)])).to(cuda)
     LAUNCHES.clear()

@@ -1,7 +1,8 @@
 """Snake's gradient in the port: the plain version of the backward kernel
 against ``jax.grad`` of the JAX ``snake_reference``, ``SnakeFunction`` under
-``gradcheck``, and the wrappers that have no backward raising where a
-gradient is wanted.
+``gradcheck``, and the wrappers that have no backward (the bfloat16 modes,
+K1) raising where a gradient is wanted. The polynomial float32 mode's
+backward: ``tests/test_torch_snake_approx_grad.py``.
 
 Tolerances: dx within rtol 1e-5 and dalpha within rtol 1e-4 of JAX's, each
 with an atol of that tolerance times the largest element (dx = g (1 + ...)
@@ -84,10 +85,9 @@ def test_snake_routes_grad_through_snake_function():
         torch.from_numpy(x), torch.from_numpy(alpha)), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("approx,dtype", [(True, torch.float32),
-                                          (False, torch.bfloat16),
+@pytest.mark.parametrize("approx,dtype", [(False, torch.bfloat16),
                                           (True, torch.bfloat16)],
-                         ids=["poly-f32", "exact-bf16", "poly-bf16"])
+                         ids=["exact-bf16", "poly-bf16"])
 def test_modes_without_backward_raise_under_grad(approx, dtype):
     x, alpha, _ = _inputs(4)
     xt = torch.from_numpy(x).to(dtype)

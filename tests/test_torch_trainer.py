@@ -35,7 +35,8 @@ def wav_dir(tmp_path_factory):
 
 
 def _cfg(wav_dir, **over):
-    cfg = dict(port.config.FLAGSHIP_TRAIN)
+    cfg = port.config.Config.load(port.config.FLAGSHIP_YAML,
+                                  base_dir=port.config.REPO).to_dict()
     cfg.update({
         "DAC_VRVQ.encoder_dim": 16, "DAC_VRVQ.encoder_rates": [2, 4, 8],
         "DAC_VRVQ.decoder_dim": 128, "DAC_VRVQ.decoder_rates": [8, 4, 2],

@@ -17,6 +17,10 @@ A folded tree (``vrvq_tpu.infer.fast.make_inference_model``) converts too:
 its ``w`` takes ``v``'s layout change, and a bfloat16 leaf stays bfloat16,
 for the port's folded modules (``nn/fold.py``).
 
+A reference-layout state dict (the PyTorch DAC_VRVQ's names and shapes, as
+the JAX package's ``export_torch_state_dict`` and ``save_torch_checkpoint``
+write it) converts by ``state_dict_from_reference``, VBR or CBR.
+
 The discriminator converts likewise (``discriminator_state_dict_from_jax``):
 a 2-D conv ``v`` is flax ``(kh, kw, in, out)``, the port's ``(out, in, kh,
 kw)``. A gradient tree has its parameters' layout, so the same two functions
@@ -27,6 +31,7 @@ by leaf.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -70,6 +75,70 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             value = np.transpose(value, (2, 1, 0))  # (k, in, out) -> (out, in, k)
         sd[key] = _tensor(value)
     return sd
+
+
+# a residual unit's layers in the reference's Sequential
+_UNIT = {"snake1": 0, "conv1": 1, "snake2": 2, "conv2": 3}
+_LEAF = {"v": "weight_v", "g": "weight_g", "bias": "bias", "alpha": "alpha",
+         "codebook": "codebook.weight"}
+
+
+def _reference_module(path: str, n_enc: int, n_dec: int) -> str:
+    """The reference's module path of one of the port's (``encoder.block_1.
+    res2.conv1`` -> ``encoder.block.2.block.2.block.1``)."""
+    rules = [
+        (r"encoder\.in_conv", lambda m: "encoder.block.0"),
+        (r"encoder\.block_(\d+)\.res(\d)\.(\w+)", lambda m: (
+            f"encoder.block.{int(m[1]) + 1}.block.{m[2]}.block.{_UNIT[m[3]]}")),
+        (r"encoder\.block_(\d+)\.snake", lambda m: f"encoder.block.{int(m[1]) + 1}.block.3"),
+        (r"encoder\.block_(\d+)\.down", lambda m: f"encoder.block.{int(m[1]) + 1}.block.4"),
+        (r"encoder\.snake", lambda m: f"encoder.block.{n_enc + 1}"),
+        (r"encoder\.out_conv", lambda m: f"encoder.block.{n_enc + 2}"),
+        (r"quantizer\.quantizers_(\d+)(\.in_proj|\.out_proj)?",
+         lambda m: f"quantizer.quantizers.{m[1]}{m[2] or ''}"),
+        (r"quantizer\.imp_subnet\.in_snake", lambda m: "quantizer.imp_subnet.in_block.0"),
+        (r"quantizer\.imp_subnet\.in_conv", lambda m: "quantizer.imp_subnet.in_block.1"),
+        (r"quantizer\.imp_subnet\.snake_(\d+)", lambda m: f"quantizer.imp_subnet.blocks.{m[1]}.0"),
+        (r"quantizer\.imp_subnet\.conv_(\d+)", lambda m: f"quantizer.imp_subnet.blocks.{m[1]}.1"),
+        (r"decoder\.in_conv", lambda m: "decoder.model.0"),
+        (r"decoder\.block_(\d+)\.snake", lambda m: f"decoder.model.{int(m[1]) + 1}.block.0"),
+        (r"decoder\.block_(\d+)\.up", lambda m: f"decoder.model.{int(m[1]) + 1}.block.1"),
+        (r"decoder\.block_(\d+)\.res(\d)\.(\w+)", lambda m: (
+            f"decoder.model.{int(m[1]) + 1}.block.{int(m[2]) + 2}.block.{_UNIT[m[3]]}")),
+        (r"decoder\.snake", lambda m: f"decoder.model.{n_dec + 1}"),
+        (r"decoder\.out_conv", lambda m: f"decoder.model.{n_dec + 2}"),
+    ]
+    for pattern, name in rules:
+        m = re.fullmatch(pattern, path)
+        if m:
+            return name(m)
+    raise KeyError(f"no reference name for the module {path!r}")
+
+
+def state_dict_from_reference(state_dict: Mapping, model) -> Dict[str, torch.Tensor]:
+    """A reference-layout ``state_dict`` (tensors or numpy arrays) -> the
+    state dict of ``model`` (a live ``DAC_VRVQ``, VBR or CBR), each tensor in
+    the port's shape: conv ``weight_v`` keeps its layout, a quantizer
+    projection's ``(out, in, 1)`` becomes ``(in, out)``, ``weight_g`` and
+    Snake ``alpha`` lose their unit axes. A key of either side that the
+    other lacks raises."""
+    cfg = model.config
+    n_enc, n_dec = len(cfg.encoder_rates), len(cfg.decoder_rates)
+    out, used = {}, set()
+    for key, param in model.state_dict().items():
+        path, leaf = key.rsplit(".", 1)
+        ref = f"{_reference_module(path, n_enc, n_dec)}.{_LEAF[leaf]}"
+        if ref not in state_dict:
+            raise KeyError(f"{ref} (for {key}) is missing from the state dict")
+        value = np.asarray(state_dict[ref], np.float32)
+        if leaf == "v" and path.endswith(("in_proj", "out_proj")):
+            value = value[:, :, 0].T
+        out[key] = torch.tensor(np.ascontiguousarray(value).reshape(param.shape))
+        used.add(ref)
+    extra = sorted(set(state_dict) - used)
+    if extra:
+        raise KeyError(f"state dict keys the {cfg.model_type} model lacks: {extra[:8]}")
+    return out
 
 
 def discriminator_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

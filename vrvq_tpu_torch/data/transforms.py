@@ -4,9 +4,10 @@
 its numpy RandomState, in the JAX package's order, and returns a dict;
 ``transform(audio, **batched_args)`` applies them to the batch ``(B, C, T)``
 on the tensor's device. A transform applies to a row where its ``mask`` is
-1 (drawn as ``rand() <= prob``). Ported: the transforms ``conf/base.yml``
-names (``Identity``, ``RescaleAudio``, ``ShiftPhase``), ``Compose`` and
-``build_transform``; ``VolumeNorm`` is not.
+1 (drawn as ``rand() <= prob``). Ported: the transforms ``conf/`` names
+(``Identity``, ``RescaleAudio``, ``ShiftPhase``, ``VolumeNorm``), ``Compose``
+and ``build_transform``, which takes each transform's arguments from the
+config's ``<Name>.<arg>`` keys (``VolumeNorm.db``).
 """
 
 from __future__ import annotations
@@ -86,6 +87,33 @@ class ShiftPhase(BaseTransform):
         return stft_ops.istft(spec, w, hop, audio.shape[-1]).to(audio.dtype)
 
 
+class VolumeNorm(BaseTransform):
+    """Scale each row to a loudness of ``db`` (LUFS): ``("const", v)`` or
+    ``("uniform", lo, hi)``, drawn from the item's state. The item's
+    loudness is measured on the host (BS.1770, ``ops/loudness.py``) when it
+    is drawn; the transform is a gain on the device."""
+
+    def __init__(self, db=("const", -24), name=None, prob: float = 1.0):
+        super().__init__(name=name, prob=prob)
+        self.db = tuple(db)
+
+    def _draw(self, state) -> float:
+        kind = self.db[0]
+        if kind == "const":
+            return float(self.db[1])
+        if kind == "uniform":
+            return float(state.uniform(self.db[1], self.db[2]))
+        raise ValueError(f"Unknown db spec {self.db}")
+
+    def _instantiate(self, state, signal=None):
+        target = self._draw(state)
+        loudness = float(signal.loudness()[0]) if signal is not None else -24.0
+        return {"gain": np.float32(np.exp((target - loudness) * np.log(10) / 20))}
+
+    def _transform(self, audio, gain=1.0):
+        return audio * _column(gain, audio)
+
+
 class Compose(BaseTransform):
     """Transforms in order, under one more mask of its own."""
 
@@ -116,22 +144,26 @@ class Compose(BaseTransform):
 
 
 TRANSFORMS = {"Identity": Identity, "RescaleAudio": RescaleAudio,
-              "ShiftPhase": ShiftPhase}
+              "ShiftPhase": ShiftPhase, "VolumeNorm": VolumeNorm}
 
 
 def build_transform(augment_prob: float = 1.0,
                     preprocess: Optional[List[str]] = None,
                     augment: Optional[List[str]] = None,
-                    postprocess: Optional[List[str]] = None) -> Compose:
+                    postprocess: Optional[List[str]] = None,
+                    cfg=None) -> Compose:
     """``Compose(preprocess, augment (at augment_prob), postprocess)``, each
-    a ``Compose`` of the named transforms (``Identity`` when empty)."""
+    a ``Compose`` of the named transforms (``Identity`` when empty), each
+    built with ``cfg.kwargs(name)`` (a ``config.Config``, in the scope of
+    the caller) when ``cfg`` is given."""
 
     def chain(names):
         unknown = [n for n in names or [] if n not in TRANSFORMS]
         if unknown:
             raise NotImplementedError(
                 f"transforms not ported: {unknown} (ported: {sorted(TRANSFORMS)})")
-        return [TRANSFORMS[n]() for n in (names or ["Identity"])]
+        return [TRANSFORMS[n](**(cfg.kwargs(n) if cfg is not None else {}))
+                for n in (names or ["Identity"])]
 
     return Compose(Compose(*chain(preprocess), name="preprocess"),
                    Compose(*chain(augment), name="augment", prob=augment_prob),

@@ -98,8 +98,7 @@ def encode_chunked(model, audio_data: torch.Tensor,
             k = keep - s
             z[..., keep: keep + chunk] = zw[..., k: k + chunk]
             feat[..., keep: keep + chunk] = fw[..., k: k + chunk]
-    return model.quantizer(z, n_quantizers=n_quantizers, feat_enc=feat,
-                           level=level)
+    return model.quantize(z, feat, n_quantizers, level)
 
 
 def forward_chunked(model, audio_data: torch.Tensor,

@@ -12,11 +12,13 @@ Counterpart of ``vrvq_tpu/infer/codec_api.py`` (``CodecProcessor``):
     encoding and restored after decoding.
 
 VBR: with ``level`` the per-frame codebook counts go into the ``.dac``
-(``vbr_counts``) and ``decompress`` rebuilds the stage mask from them.
+(``vbr_counts``) and ``decompress`` rebuilds the stage mask from them. A CBR
+model (``model_type='CBR'``) codes at ``n_quantizers`` (all Nq by default).
 
 ``fused_quantizer=True`` encodes through the fused RVQ kernel
-(``ops/rvq_kernel.py``): encoder, importance subnet, counts, then all Nq
-stages in one launch. Its weights are stacked and prepared once per
+(``ops/rvq_kernel.py``): encoder, importance subnet and counts (VBR only),
+then all Nq stages in one launch, of which a CBR request keeps the first
+``n_quantizers``. Its weights are stacked and prepared once per
 ``compress`` call (once per stream object in ``infer/streaming.py``), from
 the model's parameters as they are then.
 
@@ -62,20 +64,21 @@ class CodecProcessor:
     def _encode(self, variant, audio: torch.Tensor,
                 n_quantizers: Optional[int], level: float, rvq=None):
         """(codes (B, Nq', T'), counts (B, T') uint8 or None) on the device;
-        counts only in VBR (``n_quantizers`` None). ``rvq``: the prepared
-        quantizer weights, with ``fused_quantizer``."""
+        counts only in VBR (a VBR model, ``n_quantizers`` None). ``rvq``: the
+        prepared quantizer weights, with ``fused_quantizer``."""
         n_q = variant.n_codebooks
+        vbr = variant.vbr and n_quantizers is None
         if not self.fused_quantizer:
             enc = variant.encode(audio, n_quantizers=n_quantizers, level=level)
             counts = None
-            if n_quantizers is None:
+            if vbr:
                 counts = self._counts(enc["imp_map"], level, n_q)
             return enc["codes"], counts
         # fused: the module path's encoder and importance subnet, then the
         # whole residual loop in one kernel launch
         z, feat = variant.encoder(audio, return_feat=True)
         counts = None
-        if n_quantizers is None:
+        if vbr:
             imp_map = variant.quantizer.importance(feat, z.shape[-1])
             counts = self._counts(imp_map, level, n_q)
         _, codes = quantize_fused(rvq, z)
@@ -171,6 +174,9 @@ class CodecProcessor:
             win_duration = signal.signal_duration
 
         vbr = n_quantizers is None and level is not None
+        if vbr and not model.vbr:
+            raise ValueError("a CBR model codes at n_quantizers; level is "
+                             "for a VBR model")
         lv = level if level is not None else 1.0
         rvq = self.prepared_rvq()
 

@@ -9,8 +9,10 @@ frames, the JAX package's one-shot limit).
 
 ``save_results`` writes each level's reconstruction, the input, a
 ``metadata.json`` of SI-SDR and kbps per level and, with ``png``, each
-level's mask as an image (which needs matplotlib: without it ``png=True``
-raises before anything is written).
+level's mask as an image. The image is written by the port itself (numpy and
+zlib; the card's machine has no matplotlib): the mask's stages as rows, the
+first at the bottom, kept codes in viridis' yellow on its purple, where the
+JAX package draws the same mask with matplotlib and axis labels.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import struct
+import zlib
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -113,9 +117,6 @@ def save_results(model, input_tensor: torch.Tensor,
     ``save_result_dir``: ``recon_<level x Nq>.wav`` per level, ``input.wav``,
     ``metadata.json`` (SI-SDR and kbps per level) and, with ``png``, the
     mask of each level as ``imp_map_<level x Nq>.png``."""
-    if png:
-        import matplotlib  # noqa: F401  (raises here, before any file)
-
     os.makedirs(save_result_dir, exist_ok=True)
     save_idx = 0
     while os.path.exists(os.path.join(save_result_dir, f"{save_idx}")):
@@ -143,19 +144,26 @@ def save_results(model, input_tensor: torch.Tensor,
     return metadata
 
 
+# viridis at 0 and 1: a dropped code, a kept one
+_MASK_RGB = np.array([[68, 1, 84], [253, 231, 37]], np.uint8)
+
+
 def _save_mask_png(mask: np.ndarray, level: float, save_dir: str) -> None:
-    import matplotlib
+    """The first example's mask (Nq, T') as an 8-bit RGB PNG, each stage a
+    band of 24 pixels (stage 1 at the bottom), each frame 2 pixels wide."""
+    rgb = _MASK_RGB[(np.asarray(mask[0]) > 0.5).astype(np.intp)[::-1]]
+    rgb = np.repeat(np.repeat(rgb, 24, axis=0), 2, axis=1)
+    height, width = rgb.shape[:2]
+    rows = np.concatenate([np.zeros((height, 1), np.uint8),  # filter: none
+                           rgb.reshape(height, width * 3)], axis=1)
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    nq = mask.shape[1]
-    fig, ax = plt.subplots(figsize=(9, 5))
-    ax.imshow(mask[0], cmap="viridis", aspect="auto", interpolation="none")
-    ax.set_yticks(np.arange(0, nq))
-    ax.set_yticklabels(np.arange(1, nq + 1), fontsize=20)
-    ax.invert_yaxis()
-    ax.set_xticks([])
-    plt.tight_layout()
-    plt.savefig(os.path.join(save_dir, f"imp_map_{level:.2f}.png"))
-    plt.close(fig)
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+           + chunk(b"IEND", b""))
+    with open(os.path.join(save_dir, f"imp_map_{level:.2f}.png"), "wb") as f:
+        f.write(png)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import importlib
 import importlib.util
 import json
@@ -69,11 +70,12 @@ def snake_bound(shape, itemsize: int = 4) -> dict:
     return bound(itemsize * 2.0 * n + 4.0 * shape[1], 5.0 * n)
 
 
-def snake_backward_bound(shape) -> dict:
+def snake_backward_bound(shape, approx: bool = False) -> dict:
     """x and g read, dx written (12 bytes an element), alpha read and dalpha
-    written; ~20 operations, a sin and a cos per element."""
+    written; ~20 operations, a sin and a cos per element (the polynomial
+    mode: 44, its reduction and two Horner chains)."""
     n = math.prod(shape)
-    return bound(12.0 * n + 8.0 * shape[1], 20.0 * n)
+    return bound(12.0 * n + 8.0 * shape[1], (44.0 if approx else 20.0) * n)
 
 
 def rvq_bound(frames: int, n_q: int, d_model: int, d_code: int, k: int) -> dict:
@@ -190,23 +192,28 @@ def time_snake(snake_mod, x, alpha, plain: bool = True,
     return out
 
 
-def time_snake_backward(snake_mod, x, alpha, g) -> dict:
-    """K2's backward kernel of ``snake_mod`` on ``x``, ``alpha`` and the
-    output gradient ``g`` (float32): dx's largest difference from the plain
-    version over max|dx| (``dx_rel_err``), dalpha's over max|dalpha|
-    (``dalpha_rel_err``), whether two launches give the same bits, the
-    device time, the plain version's and the bound."""
-    dx, da = snake_mod.snake_backward(x, alpha, g)
-    dx2, da2 = snake_mod.snake_backward(x, alpha, g)
-    rdx, rda = snake_mod.snake_backward_reference(x, alpha, g)
+def time_snake_backward(snake_mod, x, alpha, g, approx: bool = False) -> dict:
+    """K2's backward kernel of ``snake_mod`` in the float32 mode of
+    ``approx`` on ``x``, ``alpha`` and the output gradient ``g``: dx's
+    largest difference from the plain version over max|dx|
+    (``dx_rel_err``), dalpha's over max|dalpha| (``dalpha_rel_err``),
+    whether two launches give the same bits, the device time, the plain
+    version's and the bound."""
+    kernel, reference = snake_mod.snake_backward, snake_mod.snake_backward_reference
+    if approx:
+        kernel = functools.partial(snake_mod.snake_backward, approx=True)
+        reference = snake_mod.snake_approx_backward_reference
+    dx, da = kernel(x, alpha, g)
+    dx2, da2 = kernel(x, alpha, g)
+    rdx, rda = reference(x, alpha, g)
     out = {"shape": list(x.shape),
            "dx_rel_err": ((dx - rdx).abs().max() / rdx.abs().max()).item(),
            "dalpha_rel_err": ((da - rda).abs().max() / rda.abs().max()).item(),
            "bit_identical": bool(torch.equal(dx, dx2) and torch.equal(da, da2)),
-           **snake_backward_bound(x.shape)}
+           **snake_backward_bound(x.shape, approx)}
     out["max_abs_err"] = max(out["dx_rel_err"], out["dalpha_rel_err"])
-    out["ms"] = device_ms(snake_mod.snake_backward, (x, alpha, g))
-    out["plain_ms"] = device_ms(snake_mod.snake_backward_reference, (x, alpha, g))
+    out["ms"] = device_ms(kernel, (x, alpha, g))
+    out["plain_ms"] = device_ms(reference, (x, alpha, g))
     return out
 
 

@@ -43,7 +43,7 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "vrvq_snake_backward": (
-        [_P] * 6 + [ctypes.c_longlong] * 3 + [_P],
+        [_P] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int, _P],
         ctypes.c_int,
     ),
     "vrvq_snake_backward_tiles": ([ctypes.c_longlong], ctypes.c_longlong),

@@ -1,7 +1,7 @@
 // Snake activation y = x + sin^2(alpha * x) / (alpha + 1e-9): the forward in
 // four modes (the exact sin^2 or the polynomial one, on float32 or bfloat16
 // x and y; float32 alpha and arithmetic in every mode), and the backward of
-// the exact float32 mode (at the end of this file).
+// the two float32 modes (at the end of this file).
 //
 // Replaces the TPU kernel vrvq_tpu/ops/snake.py: snake_pallas -> _snake_kernel,
 // which streams channels-last (B, T, C) blocks through VMEM once. Here the
@@ -63,6 +63,13 @@ constexpr float kC3 = -0x1.a01830p-9f;
 constexpr float kC4 = 0x1.27c1c6p-13f;
 constexpr float kC5 = -0x1.1c35dap-18f;
 constexpr float kC6 = 0x1.5e1a36p-24f;
+// P'(s): kDi = float32(i * kCi), ops/snake.py: SIN2_DC
+constexpr float kD1 = -0x1.555556p-2f;
+constexpr float kD2 = 0x1.6c16b6p-4f;
+constexpr float kD3 = -0x1.381224p-7f;
+constexpr float kD4 = 0x1.27c1c6p-11f;
+constexpr float kD5 = -0x1.634350p-16f;
+constexpr float kD6 = 0x1.0693a8p-21f;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -78,22 +85,32 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// The polynomial's reduction: r = (u - k PI_HI) - k PI_LO with k = rint(u / pi)
+// (to nearest even), s = r^2; and P(s) by Horner.
+__device__ __forceinline__ float reduce_pi(float u, float& s) {
+  const float k = rintf(__fmul_rn(u, kInvPi));
+  const float r = __fsub_rn(__fsub_rn(u, __fmul_rn(k, kPiHi)),
+                            __fmul_rn(k, kPiLo));
+  s = __fmul_rn(r, r);
+  return r;
+}
+
+__device__ __forceinline__ float sin2_poly(float s) {
+  float acc = __fadd_rn(__fmul_rn(kC6, s), kC5);
+  acc = __fadd_rn(__fmul_rn(acc, s), kC4);
+  acc = __fadd_rn(__fmul_rn(acc, s), kC3);
+  acc = __fadd_rn(__fmul_rn(acc, s), kC2);
+  acc = __fadd_rn(__fmul_rn(acc, s), kC1);
+  return __fadd_rn(__fmul_rn(acc, s), kC0);
+}
+
 template <bool POLY>
 __device__ __forceinline__ float snake1(float v, float a, float inv) {
   float sin2;
   if (POLY) {
-    const float u = __fmul_rn(a, v);
-    const float k = rintf(__fmul_rn(u, kInvPi));
-    const float r = __fsub_rn(__fsub_rn(u, __fmul_rn(k, kPiHi)),
-                              __fmul_rn(k, kPiLo));
-    const float s = __fmul_rn(r, r);
-    float acc = __fadd_rn(__fmul_rn(kC6, s), kC5);
-    acc = __fadd_rn(__fmul_rn(acc, s), kC4);
-    acc = __fadd_rn(__fmul_rn(acc, s), kC3);
-    acc = __fadd_rn(__fmul_rn(acc, s), kC2);
-    acc = __fadd_rn(__fmul_rn(acc, s), kC1);
-    acc = __fadd_rn(__fmul_rn(acc, s), kC0);
-    sin2 = __fmul_rn(s, acc);
+    float s;
+    reduce_pi(__fmul_rn(a, v), s);
+    sin2 = __fmul_rn(s, sin2_poly(s));
   } else {
     const float s = sinf(__fmul_rn(a, v));
     sin2 = __fmul_rn(s, s);
@@ -227,23 +244,30 @@ extern "C" int vrvq_snake_forward(const void* x, const float* alpha, void* y,
 
 // ---------------------------------------------------------------- backward
 //
-// The gradient of the exact float32 mode, for training. The JAX package has
-// no Pallas backward: XLA differentiates snake_reference and fuses the result
-// into the convs' epilogues. Eager PyTorch would launch ~8 kernels and keep
-// several temporaries per Snake, so the port computes it here, from x alone
-// (the forward saves only x). With u = alpha x, inv = 1 / (alpha + 1e-9):
+// The gradient of the two float32 modes, for training. The JAX package has
+// no Pallas backward: XLA differentiates snake_reference (exact) and
+// snake_approx (polynomial, conf/vrvq/vrvq_a2_fast.yml) and fuses the result
+// into the convs' epilogues. Eager PyTorch would launch ~8 kernels (~20 for
+// the polynomial) and keep several temporaries per Snake, so the port
+// computes it here, from x alone (the forward saves only x). With
+// u = alpha x, inv = 1 / (alpha + 1e-9), sin2 the mode's sin(u)^2 and slope
+// its derivative in u:
 //
-//   dx     = g (1 + sin(2u) (alpha inv)),        sin(2u) = 2 sin(u) cos(u)
-//   dalpha = sum_{B,T} g (x sin(2u) inv - sin(u)^2 (inv inv))
+//   dx     = g (1 + slope (alpha inv))
+//   dalpha = sum_{B,T} g (x slope inv - sin2 (inv inv))
 //
-// term for term as ops/snake.py: snake_backward_reference, every product and
-// sum rounded on its own (__fmul_rn, __fadd_rn), so dx is bit-identical to
-// the plain version; dalpha is a sum in another order and agrees to float32
-// rounding.
+// Exact: sin2 = sin(u)^2, slope = sin(2u) = 2 sin(u) cos(u). Polynomial:
+// sin2 = s P(s), slope = 2r (P(s) + s P'(s)) with r, s = r^2 the reduction of
+// the forward, k's rounding carrying no gradient (as JAX's autodiff of
+// snake_approx gives), P' a second Horner chain over the coefficients i C_i.
+// Term for term as ops/snake.py: snake_backward_reference and
+// snake_approx_backward_reference, every product and sum rounded on its own
+// (__fmul_rn, __fadd_rn), so dx is bit-identical to the plain version; dalpha
+// is a sum in another order and agrees to float32 rounding.
 //
 // Bound on the H100: bytes. Each element reads x and g and writes dx, 12
-// bytes, against one sinf, one cosf and ~12 flops; the dalpha partials are
-// (C, B * tiles) floats, a few KB.
+// bytes, against one sinf and one cosf (or two degree-6 Horner chains) and
+// ~12 more flops; the dalpha partials are (C, B * tiles) floats, a few KB.
 //
 // Design: simple and deterministic. The grid is (B * C rows, tiles of T), as
 // in the forward: a block works inside one row, so alpha and the two
@@ -254,7 +278,9 @@ extern "C" int vrvq_snake_forward(const void* x, const float* alpha, void* y,
 // partial per (channel, batch, tile). A second launch gives each channel a
 // warp that adds its partials in a fixed order. No float atomics: two
 // launches on the same inputs give the same bits, so a resumed training run
-// replays an uninterrupted one as far as this kernel is concerned.
+// replays an uninterrupted one as far as this kernel is concerned. The mode
+// is a template parameter: the two modes share every line but the two
+// values above.
 
 namespace {
 
@@ -274,6 +300,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// sin(u)^2 and its derivative in u, of the mode POLY.
+template <bool POLY>
+__device__ __forceinline__ float sin2_slope(float u, float& slope) {
+  if (POLY) {
+    float s;
+    const float r = reduce_pi(u, s);
+    const float p = sin2_poly(s);
+    float dp = __fadd_rn(__fmul_rn(kD6, s), kD5);
+    dp = __fadd_rn(__fmul_rn(dp, s), kD4);
+    dp = __fadd_rn(__fmul_rn(dp, s), kD3);
+    dp = __fadd_rn(__fmul_rn(dp, s), kD2);
+    dp = __fadd_rn(__fmul_rn(dp, s), kD1);
+    slope = __fmul_rn(__fmul_rn(2.0f, r), __fadd_rn(p, __fmul_rn(s, dp)));
+    return __fmul_rn(s, p);
+  }
+  const float sn = sinf(u);
+  slope = __fmul_rn(__fmul_rn(2.0f, sn), cosf(u));
+  return __fmul_rn(sn, sn);
+}
+
+template <bool POLY>
 __global__ void __launch_bounds__(kBwdThreads)
 snake_backward_kernel(const float* __restrict__ x,
                       const float* __restrict__ alpha,
@@ -304,12 +351,11 @@ snake_backward_kernel(const float* __restrict__ x,
   for (int i = 0; i < kBwdPerThread; ++i) {
     const long long e = start + (long long)i * nt;
     if (e < length) {
-      const float u = __fmul_rn(a, xv[i]);
-      const float s = sinf(u);
-      const float s2u = __fmul_rn(__fmul_rn(2.0f, s), cosf(u));
-      dx[base + e] = __fmul_rn(gv[i], __fadd_rn(1.0f, __fmul_rn(s2u, ai)));
-      const float t = __fsub_rn(__fmul_rn(__fmul_rn(xv[i], s2u), inv),
-                                __fmul_rn(__fmul_rn(s, s), ii));
+      float slope;
+      const float sin2 = sin2_slope<POLY>(__fmul_rn(a, xv[i]), slope);
+      dx[base + e] = __fmul_rn(gv[i], __fadd_rn(1.0f, __fmul_rn(slope, ai)));
+      const float t = __fsub_rn(__fmul_rn(__fmul_rn(xv[i], slope), inv),
+                                __fmul_rn(sin2, ii));
       acc = __fadd_rn(acc, __fmul_rn(gv[i], t));
     }
   }
@@ -346,14 +392,14 @@ extern "C" long long vrvq_snake_backward_tiles(long long length) {
 }
 
 // x, g, dx: (B, C, T) float32 contiguous; alpha, dalpha: (C,) float32;
-// partials: (C, B * vrvq_snake_backward_tiles(T)) float32 scratch. Two
-// launches on `stream`; returns the cudaError_t of the launches (0 on
-// success).
+// partials: (C, B * vrvq_snake_backward_tiles(T)) float32 scratch; poly: 1
+// for the polynomial mode. Two launches on `stream`; returns the cudaError_t
+// of the launches (0 on success).
 extern "C" int vrvq_snake_backward(const float* x, const float* alpha,
                                    const float* g, float* dx, float* partials,
                                    float* dalpha, long long batch,
                                    long long channels, long long length,
-                                   void* stream) {
+                                   int poly, void* stream) {
   if (batch <= 0 || channels <= 0 || length <= 0) return 0;
   const long long rows = batch * channels;
   const long long tiles = bwd_tiles(length);
@@ -365,10 +411,15 @@ extern "C" int vrvq_snake_backward(const float* x, const float* alpha,
   if (threads > kBwdThreads) threads = kBwdThreads;
   const long long per_channel = batch * tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  snake_backward_kernel<<<dim3((unsigned)rows, (unsigned)tiles),
-                          (unsigned)threads, 0, s>>>(
-      x, alpha, g, dx, partials, (unsigned)channels, (unsigned)tiles,
-      per_channel, length);
+  const dim3 grid((unsigned)rows, (unsigned)tiles);
+  if (poly)
+    snake_backward_kernel<true><<<grid, (unsigned)threads, 0, s>>>(
+        x, alpha, g, dx, partials, (unsigned)channels, (unsigned)tiles,
+        per_channel, length);
+  else
+    snake_backward_kernel<false><<<grid, (unsigned)threads, 0, s>>>(
+        x, alpha, g, dx, partials, (unsigned)channels, (unsigned)tiles,
+        per_channel, length);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const unsigned blocks = (unsigned)((channels + kReduceWarps - 1) / kReduceWarps);

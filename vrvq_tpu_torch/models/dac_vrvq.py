@@ -1,4 +1,5 @@
-"""DAC_VRVQ: the flagship variable-bitrate codec, Encoder -> VBR RVQ -> Decoder.
+"""DAC_VRVQ: the codec, Encoder -> residual VQ -> Decoder, variable-bitrate
+(``model_type='VBR'``, the flagship) or constant-bitrate (``'CBR'``).
 
 Counterpart of ``vrvq_tpu/models/dac_vrvq.py``, in (B, C, T):
 audio ``(B, 1, T)``, latents ``(B, D, T')``, codes ``(B, Nq, T')``.
@@ -7,10 +8,12 @@ runs; ``clone(padding=...)`` gives the other variant on the same parameters.
 A ``Profile`` sets how the conv stacks run at inference (the JAX model's
 inference fields, ``vrvq_tpu/models/dac_vrvq.py``): folded weight norm,
 the polynomial Snake, per stack, and the decoder's compute dtype; ``infer/fast.py``
-builds the fast and turbo profiles. The quantizer, with the importance
-subnet, always runs live in float32 with the exact Snake. ``forward(...,
-train=True)`` is the training forward: random levels and the batch partition
-of the quantizer, with its losses.
+builds the fast and turbo profiles. A stack's Snake is the config's
+(``encoder_snake_approx``, ``decoder_snake_approx``, which training runs
+too) unless the profile sets it. The quantizer, with the importance subnet,
+always runs live in float32 with the exact Snake. ``forward(...,
+train=True)`` is the training forward: the quantizer's random draws (VBR:
+levels and the batch partition; CBR: quantizer dropout) with its losses.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..nn.layers import DecoderBlock, EncoderBlock, Snake1d, WNConv1d
 from . import codec
-from .quantize import VBRResidualVectorQuantize
+from .quantize import ResidualVectorQuantize, VBRResidualVectorQuantize
 
 
 @dataclass(frozen=True)
@@ -34,13 +37,13 @@ class Profile:
     """How each conv stack runs at inference. The defaults are the live
     exact codec. The encoder computes in float32; a decoder compute dtype
     other than float32 needs the decoder folded (its kernels are stored in
-    that dtype)."""
+    that dtype). A Snake field left ``None`` takes the config's."""
 
     encoder_folded: bool = False
     decoder_folded: bool = False
     decoder_compute_dtype: torch.dtype = torch.float32
-    encoder_snake_approx: bool = False
-    decoder_snake_approx: bool = False
+    encoder_snake_approx: Optional[bool] = None
+    decoder_snake_approx: Optional[bool] = None
 
 
 class Encoder(nn.Module):
@@ -110,38 +113,45 @@ class Decoder(nn.Module):
         return torch.tanh(self.out_conv(self.snake(x))).float()
 
 
+def _either(profile_value: Optional[bool], config_value: bool) -> bool:
+    return config_value if profile_value is None else profile_value
+
+
 class DAC_VRVQ(nn.Module):
-    """The VBR codec. Parameters are left uninitialized: load them
+    """The codec. Parameters are left uninitialized: load them
     (``convert.state_dict_from_jax``) or draw them (``convert.init_params``)."""
 
     def __init__(self, config: ModelConfig, padding: bool = True,
                  profile: Profile = Profile()):
         super().__init__()
-        if config.model_type != "VBR":
-            raise NotImplementedError(
-                "only model_type='VBR' is ported; the CBR-only quantizer "
-                "(ResidualVectorQuantize) waits for a later slice"
-            )
         self.config = config
         self.padding = padding
         self.profile = profile
         latent_dim = config.latent_dim
-        self.encoder = Encoder(config.encoder_dim, config.encoder_rates,
-                               latent_dim, padding, profile.encoder_folded,
-                               profile.encoder_snake_approx)
-        self.quantizer = VBRResidualVectorQuantize(
-            latent_dim, config.n_codebooks, config.codebook_size,
-            config.codebook_dim, imp2mask_alpha=config.imp2mask_alpha,
-            quantizer_dropout=config.quantizer_dropout,
-            full_codebook_rate=config.full_codebook_rate,
-            level_min=config.level_min, level_max=config.level_max,
-            level_dist=config.level_dist,
-        )
-        self.decoder = Decoder(latent_dim, config.decoder_dim,
-                               config.decoder_rates, padding=padding,
-                               folded=profile.decoder_folded,
-                               snake_approx=profile.decoder_snake_approx,
-                               dtype=profile.decoder_compute_dtype)
+        self.encoder = Encoder(
+            config.encoder_dim, config.encoder_rates, latent_dim, padding,
+            profile.encoder_folded,
+            _either(profile.encoder_snake_approx, config.encoder_snake_approx))
+        if config.model_type == "CBR":
+            self.quantizer = ResidualVectorQuantize(
+                latent_dim, config.n_codebooks, config.codebook_size,
+                config.codebook_dim, quantizer_dropout=config.quantizer_dropout)
+        else:
+            self.quantizer = VBRResidualVectorQuantize(
+                latent_dim, config.n_codebooks, config.codebook_size,
+                config.codebook_dim, imp2mask_alpha=config.imp2mask_alpha,
+                quantizer_dropout=config.quantizer_dropout,
+                full_codebook_rate=config.full_codebook_rate,
+                level_min=config.level_min, level_max=config.level_max,
+                level_dist=config.level_dist,
+                detach_imp_map_input=config.detach_imp_map_input,
+            )
+        self.decoder = Decoder(
+            latent_dim, config.decoder_dim, config.decoder_rates,
+            padding=padding, folded=profile.decoder_folded,
+            snake_approx=_either(profile.decoder_snake_approx,
+                                 config.decoder_snake_approx),
+            dtype=profile.decoder_compute_dtype)
 
     # ------------------------------------------------------------ geometry
     @property
@@ -153,6 +163,10 @@ class DAC_VRVQ(nn.Module):
         return self.config.n_codebooks
 
     @property
+    def vbr(self) -> bool:
+        return self.config.model_type == "VBR"
+
+    @property
     def hop_length(self) -> int:
         return int(np.prod(self.config.encoder_rates))
 
@@ -160,7 +174,7 @@ class DAC_VRVQ(nn.Module):
     def conv_specs(self) -> List[codec.ConvSpec]:
         return codec.model_conv_specs(self.config.encoder_rates,
                                       self.config.decoder_rates,
-                                      self.config.n_codebooks, vbr=True)
+                                      self.config.n_codebooks, vbr=self.vbr)
 
     @property
     def delay(self) -> int:
@@ -216,14 +230,34 @@ class DAC_VRVQ(nn.Module):
             audio_data = torch.nn.functional.pad(audio_data, (0, right_pad))
         return audio_data
 
+    def quantize(self, z: torch.Tensor, feat: torch.Tensor,
+                 n_quantizers: Optional[int] = None,
+                 level: Optional[float] = 1.0, **train_kw) -> dict:
+        """The quantizer on the encoder's latents ``z`` and feature ``feat``
+        (which only VBR's importance subnet reads); ``train_kw`` are the
+        quantizer's train arguments."""
+        if not self.vbr:
+            if train_kw.pop("levels", None) is not None:
+                raise ValueError("a CBR model draws no levels")
+            return self.quantizer(z, n_quantizers=n_quantizers, **train_kw)
+        return self.quantizer(z, n_quantizers=n_quantizers, feat_enc=feat,
+                              level=level, **train_kw)
+
+    def draws(self, batch: int, generator: Optional[torch.Generator],
+              device) -> dict:
+        """A train forward's random numbers for ``batch`` rows (VBR: levels
+        and dropout depths; CBR: dropout depths), to pin them with
+        ``forward(..., **draws)``."""
+        return self.quantizer.draws(batch, generator, device)
+
     def encode(self, audio_data: torch.Tensor,
                n_quantizers: Optional[int] = None,
                level: Optional[float] = 1.0) -> dict:
-        """audio (B, 1, T) -> the quantizer's dict: z_q (B, D, T'), z_q_is,
-        codes (B, Nq, T'), latents, imp_map (B, 1, T'), mask_imp."""
+        """audio (B, 1, T) -> the quantizer's dict: z_q (B, D, T'), codes
+        (B, Nq, T'), latents; VBR also z_q_is, imp_map (B, 1, T'),
+        mask_imp."""
         z, feat = self.encoder(audio_data, return_feat=True)
-        return self.quantizer(z, n_quantizers=n_quantizers, feat_enc=feat,
-                              level=level)
+        return self.quantize(z, feat, n_quantizers, level)
 
     def decode(self, z_q: torch.Tensor) -> torch.Tensor:
         """z_q (B, D, T') -> audio (B, 1, T)."""
@@ -244,15 +278,17 @@ class DAC_VRVQ(nn.Module):
         """preprocess -> encode -> decode, trimmed to the input length.
 
         ``train=True`` is the training forward (the quantizer's random
-        levels from ``generator``, or ``levels``/``depths`` pinned) and adds
+        draws from ``generator``, or ``levels``/``depths`` pinned) and adds
         ``vq/commitment_loss`` and ``vq/codebook_loss``; ``imp_map`` then
-        holds the importance-masked rows only."""
+        holds the importance-masked rows only (None in CBR)."""
         length = audio_data.shape[-1]
         audio_data = self.preprocess(audio_data, sample_rate)
         z, feat = self.encoder(audio_data, return_feat=True)
-        q = self.quantizer(z, n_quantizers=n_quantizers, feat_enc=feat,
-                           level=level, train=train, generator=generator,
-                           levels=levels, depths=depths)
+        train_kw = {}
+        if train:
+            train_kw = dict(train=True, generator=generator, levels=levels,
+                            depths=depths)
+        q = self.quantize(z, feat, n_quantizers, level, **train_kw)
         audio = self.decoder(q["z_q"])[..., :length]
         out = {
             "audio": audio,

@@ -10,8 +10,14 @@ importance-masked, random-depth (dropout) and full-codebook rows; the draws
 come from a ``torch.Generator`` or are passed in (``levels``, ``depths``).
 The straight-through estimator and the mask's are detached as the JAX
 module's ``stop_gradient``: the encoder gets the gradient of z_q, the
-importance subnet that of the smooth mask. The CBR-only
-``ResidualVectorQuantize`` is not ported.
+importance subnet that of the smooth mask.
+
+``ResidualVectorQuantize`` is the constant-bitrate quantizer of the CBR
+codec (``model_type: CBR``, ``conf/original_dac/cbr.yml``): ``n_quantizers``
+stages in eval, all of them in train with per-sample quantizer dropout (the
+first ``int(B * quantizer_dropout)`` rows keep a depth drawn in [1, Nq]).
+Both quantizers rebuild z_q from codes (``from_codes``) and from the
+stages' latents (``from_latents``).
 """
 
 from __future__ import annotations
@@ -75,10 +81,137 @@ class VectorQuantize(nn.Module):
         return self.decode_code(indices).to(latents.dtype), indices
 
 
-class VBRResidualVectorQuantize(nn.Module):
+class _Stages(nn.Module):
+    """``n_codebooks`` factorized-VQ stages (``quantizers_{i}``) and what
+    rebuilds z_q from their codes or latents."""
+
+    def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
+                 codebook_dim: int, quantizer_dropout: float = 0.0):
+        super().__init__()
+        self.n_codebooks = n_codebooks
+        self.codebook_dim = codebook_dim
+        self.quantizer_dropout = quantizer_dropout
+        for i in range(n_codebooks):
+            self.add_module(f"quantizers_{i}",
+                            VectorQuantize(input_dim, codebook_size,
+                                           codebook_dim))
+
+    @property
+    def quantizers(self):
+        return [getattr(self, f"quantizers_{i}") for i in range(self.n_codebooks)]
+
+    def n_stages(self, n_quantizers: Optional[int]) -> int:
+        if n_quantizers is None:
+            return self.n_codebooks
+        if not 1 <= int(n_quantizers) <= self.n_codebooks:
+            raise ValueError(
+                f"n_quantizers must be in [1, {self.n_codebooks}], "
+                f"got {n_quantizers}"
+            )
+        return int(n_quantizers)
+
+    def random_depths(self, n: int, generator: Optional[torch.Generator],
+                      device) -> Optional[torch.Tensor]:
+        """``n`` quantizer-dropout depths drawn in [1, Nq], or None."""
+        if n == 0:
+            return None
+        return torch.randint(1, self.n_codebooks + 1, (n,), generator=generator,
+                             device=device)
+
+    def from_codes(self, codes: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """codes (B, n, T) [+ mask (B, n, T), 1 = keep] -> z_q (B, D, T)."""
+        z_q = 0.0
+        for i in range(codes.shape[1]):
+            q = self.quantizers[i]
+            z_q_i = q.out_proj(q.decode_code(codes[:, i, :]))
+            if mask is not None:
+                z_q_i = z_q_i * mask[:, i:i + 1, :]
+            z_q = z_q + z_q_i
+        return z_q
+
+    def from_latents(self, latents: torch.Tensor):
+        """latents (B, n * d, T), the stages' in-projections side by side ->
+        (z_q (B, D, T), z_p (B, n * d, T) the nearest codebook rows, codes
+        (B, n, T)), over the whole stages the width holds."""
+        d = self.codebook_dim
+        n = min(latents.shape[1] // d, self.n_codebooks)
+        z_q, z_p, codes = 0.0, [], []
+        for i in range(n):
+            q = self.quantizers[i]
+            z_p_i, codes_i = q.decode_latents(latents[:, i * d:(i + 1) * d, :])
+            z_p.append(z_p_i)
+            codes.append(codes_i)
+            z_q = z_q + q.out_proj(z_p_i)
+        return z_q, torch.cat(z_p, dim=1), torch.stack(codes, dim=1)
+
+
+class ResidualVectorQuantize(_Stages):
+    """The CBR quantizer: ``n_quantizers`` stages on the residual (all Nq by
+    default); in train mode all Nq, each row keeping the stages under its
+    depth (Nq for all but the first ``int(B * quantizer_dropout)`` rows)."""
+
+    def draws(self, batch: int, generator: Optional[torch.Generator],
+              device) -> dict:
+        """A train forward's random numbers for ``batch`` rows: the dropout
+        rows' ``depths``."""
+        return {"depths": self.random_depths(
+            int(batch * self.quantizer_dropout), generator, device)}
+
+    def forward(self, z: torch.Tensor, n_quantizers: Optional[int] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                depths: Optional[Sequence[int]] = None) -> dict:
+        """z (B, D, T) -> z_q (B, D, T), codes (B, n, T), latents
+        (B, n * d, T), and in train mode ``commitment_loss`` and
+        ``codebook_loss`` (each row's stage means, masked by its depth, then
+        the batch mean, summed over the stages). ``depths`` pins the dropout
+        rows' draws."""
+        bs = z.shape[0]
+        if train and n_quantizers is not None:
+            raise ValueError("train mode runs every stage (n_quantizers=None)")
+        n_stages = self.n_stages(n_quantizers)
+        if train:
+            n_dropout = int(bs * self.quantizer_dropout)
+            if depths is None:
+                depths = self.draws(bs, generator, z.device)["depths"]
+            keep = torch.full((bs,), float(self.n_codebooks + 1), dtype=z.dtype,
+                              device=z.device)
+            if n_dropout > 0:
+                keep = torch.cat([torch.as_tensor(depths, device=z.device)
+                                  .to(z.dtype).reshape(n_dropout),
+                                  keep[n_dropout:]])
+        residual = z
+        z_q, commitment, codebook = 0.0, 0.0, 0.0
+        codes, latents = [], []
+        for i, quantizer in enumerate(self.quantizers[:n_stages]):
+            z_q_i, indices_i, z_e_i, *stage_losses = quantizer(residual, train)
+            residual = residual - z_q_i
+            codes.append(indices_i)
+            latents.append(z_e_i)
+            if train:
+                mask = (float(i) < keep).to(z.dtype)
+                z_q_i = z_q_i * mask[:, None, None]
+                commitment = commitment + torch.mean(
+                    torch.mean(stage_losses[0], dim=1) * mask)
+                codebook = codebook + torch.mean(
+                    torch.mean(stage_losses[1], dim=1) * mask)
+            z_q = z_q + z_q_i
+        out = {"z_q": z_q, "codes": torch.stack(codes, dim=1),
+               "latents": torch.cat(latents, dim=1),
+               "imp_map": None, "mask_imp": None}
+        if train:
+            out["commitment_loss"] = commitment
+            out["codebook_loss"] = codebook
+        return out
+
+
+class VBRResidualVectorQuantize(_Stages):
     """All Nq stages run on the residual; a per-frame importance map gates how
     many each frame keeps (VBR at a ``level``, or at random levels in
-    train mode), or ``n_quantizers`` stages are kept everywhere (CBR)."""
+    train mode), or ``n_quantizers`` stages are kept everywhere (CBR).
+    ``detach_imp_map_input`` stops the importance subnet's gradient at its
+    input, so the encoder gets none through it."""
 
     def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
                  codebook_dim: int, imp2mask_alpha: float = 1.0,
@@ -86,24 +219,17 @@ class VBRResidualVectorQuantize(nn.Module):
                  full_codebook_rate: float = 0.0,
                  level_min: Optional[float] = None,
                  level_max: Optional[float] = None,
-                 level_dist: str = "uniform"):
-        super().__init__()
-        self.n_codebooks = n_codebooks
+                 level_dist: str = "uniform",
+                 detach_imp_map_input: bool = False):
+        super().__init__(input_dim, n_codebooks, codebook_size, codebook_dim,
+                         quantizer_dropout)
         self.imp2mask_alpha = imp2mask_alpha
-        self.quantizer_dropout = quantizer_dropout
         self.full_codebook_rate = full_codebook_rate
         self.level_min = level_min
         self.level_max = level_max
         self.level_dist = level_dist
-        for i in range(n_codebooks):
-            self.add_module(f"quantizers_{i}",
-                            VectorQuantize(input_dim, codebook_size,
-                                           codebook_dim))
-        self.imp_subnet = ImportanceSubnet(input_dim, input_dim)
-
-    @property
-    def quantizers(self):
-        return [getattr(self, f"quantizers_{i}") for i in range(self.n_codebooks)]
+        self.imp_subnet = ImportanceSubnet(input_dim, input_dim,
+                                           detach_input=detach_imp_map_input)
 
     def importance(self, feat_enc: torch.Tensor, frames: int) -> torch.Tensor:
         """Importance map (B, 1, frames). A padding-free encoder's feature is
@@ -137,6 +263,16 @@ class VBRResidualVectorQuantize(nn.Module):
             return torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
         raise ValueError(f"Invalid level_dist {self.level_dist!r}")
 
+    def draws(self, batch: int, generator: Optional[torch.Generator],
+              device) -> dict:
+        """A train forward's random numbers for ``batch`` rows, in the order
+        the forward draws them: each row's ``levels (B,)``, then the
+        dropout rows' ``depths``."""
+        u = torch.rand((batch,), generator=generator, device=device)
+        return {"levels": self.random_levels(u),
+                "depths": self.random_depths(self.partition(batch)[1],
+                                             generator, device)}
+
     def forward(self, z: torch.Tensor, n_quantizers: Optional[int] = None,
                 feat_enc: Optional[torch.Tensor] = None,
                 level: Optional[float] = None, train: bool = False,
@@ -157,12 +293,11 @@ class VBRResidualVectorQuantize(nn.Module):
             raise ValueError("train mode is VBR only (n_quantizers=None)")
         if vbr and not train and level is None:
             raise ValueError("level must be specified in VBR inference")
-        if not vbr and not 1 <= int(n_quantizers) <= self.n_codebooks:
-            raise ValueError(
-                f"n_quantizers must be in [1, {self.n_codebooks}], "
-                f"got {n_quantizers}"
-            )
-        n_stages = self.n_codebooks if vbr else int(n_quantizers)
+        n_stages = self.n_stages(n_quantizers)
+        if train and (levels is None or depths is None):
+            drawn = self.draws(bs, generator, z.device)
+            levels = drawn["levels"] if levels is None else levels
+            depths = drawn["depths"] if depths is None else depths
 
         residual = z
         z_q_is, codes, latents, commits, cbs = [], [], [], [], []
@@ -179,11 +314,8 @@ class VBRResidualVectorQuantize(nn.Module):
         if vbr:
             imp_map = self.importance(feat_enc, frames)
             if train:
-                if levels is None:
-                    levels = self.random_levels(torch.rand(
-                        (bs, 1, 1), generator=generator, device=z.device,
-                        dtype=z.dtype))
-                scale = levels.reshape(bs, 1, 1).to(z)
+                scale = torch.as_tensor(levels, device=z.device).reshape(
+                    bs, 1, 1).to(z)
             else:
                 scale = level
             mask_imp = generate_mask_ste(
@@ -201,10 +333,6 @@ class VBRResidualVectorQuantize(nn.Module):
             n_imps, n_dropout, n_full = self.partition(bs)
             parts = [mask_imp[:n_imps]]
             if n_dropout > 0:
-                if depths is None:
-                    depths = torch.randint(
-                        1, self.n_codebooks + 1, (n_dropout,),
-                        generator=generator, device=z.device)
                 depths = torch.as_tensor(depths, device=z.device).to(z.dtype)
                 parts.append(generate_mask_hard(
                     depths.reshape(n_dropout, 1, 1).expand(n_dropout, 1, frames),
@@ -230,15 +358,3 @@ class VBRResidualVectorQuantize(nn.Module):
             out["codebook_loss"] = torch.mean(
                 torch.sum(torch.stack(cbs, dim=1) * mask_sg, dim=1))
         return out
-
-    def from_codes(self, codes: torch.Tensor,
-                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """codes (B, n, T) [+ mask (B, n, T), 1 = keep] -> z_q (B, D, T)."""
-        z_q = 0.0
-        for i in range(codes.shape[1]):
-            q = self.quantizers[i]
-            z_q_i = q.out_proj(q.decode_code(codes[:, i, :]))
-            if mask is not None:
-                z_q_i = z_q_i * mask[:, i:i + 1, :]
-            z_q = z_q + z_q_i
-        return z_q

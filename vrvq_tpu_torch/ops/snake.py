@@ -10,12 +10,12 @@ the JAX ``snake_approx`` (``approx=True``), each on float32 or bfloat16 ``x``.
 Arithmetic is float32 in every mode, and a bfloat16 result is rounded once,
 as the JAX layer computes ``snake_approx`` in float32 and casts back.
 
-Training differentiates the exact float32 mode: ``SnakeFunction`` runs the
+Training differentiates the two float32 modes: ``SnakeFunction`` runs the
 forward kernel and, in backward, the port's own backward kernel (the JAX
-package gets this gradient from XLA's autodiff of ``snake_reference``),
-saving only ``x``. ``snake`` routes a call that needs a gradient there; the
-modes with no backward (polynomial, bfloat16) raise under grad, on either
-device, rather than return a result that drops its gradient.
+package gets these gradients from XLA's autodiff of ``snake_reference`` and
+``snake_approx``), saving only ``x``. ``snake`` routes a call that needs a
+gradient there; the bfloat16 modes have no backward and raise under grad,
+on either device, rather than return a result that drops its gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +34,15 @@ SIN2_C = (
     1.000000000e+00, -3.333333305e-01, 4.444442364e-02, -3.174549052e-03,
     1.410278879e-04, -4.235064360e-06, 8.151456250e-08,
 )
+
+
+def _f32(v: float) -> float:
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+# P'(s) in ascending order: i * C_i for i = 1..6, each the float32 rounding
+# of i times the float32 C_i (the backward kernel's constants)
+SIN2_DC = tuple(_f32(i * _f32(c)) for i, c in enumerate(SIN2_C) if i)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
 
@@ -70,17 +79,28 @@ def snake_approx_reference(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor
     return (xf + sin2_approx(a * xf) * (1.0 / (a + 1e-9))).to(x.dtype)
 
 
-def sin2_approx(u: torch.Tensor) -> torch.Tensor:
-    """``sin(u)^2`` in float32 by the JAX ``snake_approx``'s polynomial: the
-    period-pi Cody-Waite reduction with rounding to nearest even, then the
-    degree-6 Horner of ``SIN2_C`` in ``s = r^2``."""
+def _reduce(u: torch.Tensor):
+    """The period-pi Cody-Waite reduction of the JAX ``snake_approx``, with
+    rounding to nearest even: ``(r, s = r^2)``, r in [-pi/2, pi/2]."""
     k = torch.round(u * INV_PI)
     r = (u - k * PI_HI) - k * PI_LO
-    s = r * r
-    acc = s * SIN2_C[-1] + SIN2_C[-2]
-    for c in SIN2_C[-3::-1]:
+    return r, r * r
+
+
+def _horner(s: torch.Tensor, coeffs) -> torch.Tensor:
+    """The polynomial of ascending ``coeffs`` at ``s``, by Horner."""
+    acc = s * coeffs[-1] + coeffs[-2]
+    for c in coeffs[-3::-1]:
         acc = acc * s + c
-    return s * acc
+    return acc
+
+
+def sin2_approx(u: torch.Tensor) -> torch.Tensor:
+    """``sin(u)^2`` in float32 by the JAX ``snake_approx``'s polynomial:
+    ``s P(s)`` with ``s = r^2`` after the reduction, P the degree-6 Horner
+    of ``SIN2_C``."""
+    _, s = _reduce(u)
+    return s * _horner(s, SIN2_C)
 
 
 def snake_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -113,6 +133,30 @@ def snake_backward_reference(x: torch.Tensor, alpha: torch.Tensor,
     return dx.to(x.dtype), torch.sum(terms, dim=(0, 2)).to(alpha.dtype)
 
 
+def snake_approx_backward_reference(x: torch.Tensor, alpha: torch.Tensor,
+                                    grad: torch.Tensor):
+    """Plain version of the polynomial mode's backward kernel: ``(dx, dalpha)``
+    with the exact mode's expressions (``snake_backward_reference``) and the
+    polynomial's value and slope in place of sin(u)^2 and sin(2u):
+
+        sin2  = s P(s)
+        slope = d sin2 / du = (2 r) (P(s) + s P'(s))
+
+    where the rounding of k carries no gradient (as JAX's autodiff of
+    ``snake_approx`` gives) and P' is the Horner of ``SIN2_DC``; each
+    operation rounded on its own (the kernel's)."""
+    xf = x.to(_wide(x))
+    g = grad.to(xf.dtype)
+    a = alpha.to(xf.dtype).reshape(1, -1, 1)
+    inv = 1.0 / (a + 1e-9)
+    r, s = _reduce(a * xf)
+    p = _horner(s, SIN2_C)
+    slope = (2.0 * r) * (p + s * _horner(s, SIN2_DC))
+    dx = g * (1.0 + slope * (a * inv))
+    terms = g * ((xf * slope) * inv - (s * p) * (inv * inv))
+    return dx.to(x.dtype), torch.sum(terms, dim=(0, 2)).to(alpha.dtype)
+
+
 def _check_operands(x: torch.Tensor, alpha: torch.Tensor) -> None:
     if x.dtype not in DTYPES or alpha.dtype != torch.float32:
         raise TypeError(
@@ -129,13 +173,17 @@ def _check_operands(x: torch.Tensor, alpha: torch.Tensor) -> None:
         raise ValueError("snake: x and alpha must be on the same device")
 
 
-def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor):
-    """``(dx, dalpha)`` of the exact float32 mode: the backward kernel for
-    CUDA tensors, ``snake_backward_reference`` for CPU tensors. One pass
+def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor,
+                   approx: bool = False):
+    """``(dx, dalpha)`` of the float32 mode ``approx`` selects: the backward
+    kernel for CUDA tensors, its plain version (``snake_backward_reference``
+    or ``snake_approx_backward_reference``) for CPU tensors. One pass
     writes dx and per-block partial sums of dalpha into a ``(C, B * tiles)``
     buffer, a second launch sums each channel's row in a fixed order: no
     atomics, so two launches on the same inputs give the same bits."""
     if x.device.type == "cpu":
+        if approx:
+            return snake_approx_backward_reference(x, alpha, grad)
         return snake_backward_reference(x, alpha, grad)
     if x.device.type != "cuda":
         raise ValueError(f"snake_backward: unsupported device {x.device}")
@@ -157,11 +205,12 @@ def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor):
                            dtype=torch.float32, device=x.device)
     err = lib.vrvq_snake_backward(
         x.data_ptr(), alpha.data_ptr(), grad.data_ptr(), dx.data_ptr(),
-        partials.data_ptr(), dalpha.data_ptr(), b, c, t,
+        partials.data_ptr(), dalpha.data_ptr(), b, c, t, int(approx),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    LAUNCHES["snake_backward"] += 1
-    check(err, "snake_backward")
+    name = "snake_approx_backward" if approx else "snake_backward"
+    LAUNCHES[name] += 1
+    check(err, name)
     return dx, dalpha
 
 
@@ -186,20 +235,22 @@ def _forward(x: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tensor
 
 
 class SnakeFunction(torch.autograd.Function):
-    """The exact mode with its gradient: forward through ``_forward``,
-    backward through ``snake_backward``; saves ``x`` and ``alpha``."""
+    """A float32 mode (exact, or the polynomial with ``approx``) with its
+    gradient: forward through ``_forward``, backward through
+    ``snake_backward``; saves ``x`` and ``alpha``."""
 
     @staticmethod
-    def forward(ctx, x, alpha):
+    def forward(ctx, x, alpha, approx=False):
         ctx.save_for_backward(x, alpha)
-        return _forward(x, alpha, False)
+        ctx.approx = approx
+        return _forward(x, alpha, approx)
 
     @staticmethod
     def backward(ctx, grad):
         x, alpha = ctx.saved_tensors
-        dx, dalpha = snake_backward(x, alpha, grad)
+        dx, dalpha = snake_backward(x, alpha, grad, ctx.approx)
         return (dx if ctx.needs_input_grad[0] else None,
-                dalpha if ctx.needs_input_grad[1] else None)
+                dalpha if ctx.needs_input_grad[1] else None, None)
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor,
@@ -209,13 +260,13 @@ def snake(x: torch.Tensor, alpha: torch.Tensor,
     float32 ``alpha (C,)``; ``approx`` picks the polynomial ``sin^2``.
 
     Where a gradient is wanted (grad mode on and ``x`` or ``alpha``
-    requiring grad), the exact float32 mode goes through ``SnakeFunction``
-    and the other modes raise: they have no backward."""
+    requiring grad), the float32 modes go through ``SnakeFunction`` and the
+    bfloat16 modes raise: they have no backward."""
     if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad):
-        if approx or x.dtype != torch.float32:
+        if x.dtype != torch.float32:
             raise RuntimeError(
                 f"snake: the {mode_name(x.dtype, approx)} mode has no "
                 "backward; run it under torch.no_grad() or "
-                "torch.inference_mode(), or train with the exact float32 mode")
-        return SnakeFunction.apply(x, alpha)
+                "torch.inference_mode(), or train in float32")
+        return SnakeFunction.apply(x, alpha, approx)
     return _forward(x, alpha, approx)

@@ -1,10 +1,12 @@
 """Where a training step's time goes on the card.
 
-``python -m vrvq_tpu_torch.profile_train [--steps N] [--trace PATH]`` builds
-the flagship generator and discriminator (random seeded weights) as
+``python -m vrvq_tpu_torch.profile_train [--args.load CONF] [--steps N]
+[--trace PATH]`` builds the generator and discriminator of the
+config (``conf/vrvq/vrvq_a2.yml`` by default; random seeded weights) as
 ``train()`` does, on 32 seeded synthetic 1 s wavs written to a temporary
-directory, at batch 16 x 0.38 s with ``conf/vrvq/vrvq_a2.yml``'s lambdas.
-Then:
+directory, in micro-batches of 16 x 0.38 s: a batch of 16 times the config's
+``grad_accum_steps``, so ``vrvq_a2_b64_1chip.yml`` runs its batch of 64 as
+4 x 16. Then:
 
   * runs 2 untimed steps, then ``--steps`` steps each timed on the host
     clock after ``torch.cuda.synchronize`` (the batch's load and transforms
@@ -34,10 +36,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
-from vrvq_tpu_torch.config import FLAGSHIP_TRAIN
+from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config
 from vrvq_tpu_torch.train import trainer
 
-BATCH = 16
+MICRO_BATCH = 16
 DURATION_S = 0.38
 WAVS = 32
 
@@ -65,17 +67,21 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def config(wav_dir: Path, seed: int = 0) -> dict:
-    cfg = dict(FLAGSHIP_TRAIN)
+def config(path: str, wav_dir: Path, seed: int = 0) -> Config:
+    """The config at ``path`` (from the repo root) on ``wav_dir``, in
+    micro-batches of 16 x 0.38 s."""
+    cfg = Config.load(path, base_dir=REPO)
+    accum = int(cfg.get("grad_accum_steps", 1))
     cfg.update({"train/build_dataset.folders": {"music": [str(wav_dir)]},
                 "val/build_dataset.folders": {"music": [str(wav_dir)]},
-                "train/AudioDataset.duration": DURATION_S, "batch_size": BATCH,
-                "seed": seed})
+                "train/AudioDataset.duration": DURATION_S,
+                "batch_size": MICRO_BATCH * accum, "seed": seed})
     return cfg
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--args.load", dest="load", default=FLAGSHIP_YAML)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
@@ -87,12 +93,13 @@ def main() -> None:
         for i in range(WAVS):
             port.Signal(port.synthetic_clip(1.0, 44100, 100 + i), 44100).write(
                 wav_dir / f"clip_{i:02d}.wav")
-        cfg = config(wav_dir)
+        cfg = config(args.load, wav_dir)
+        batch_size = int(cfg["batch_size"])
         state = trainer.load(cfg, trainer.Tracker(), tmp, device=device)
 
         def batch(step):
             return trainer.prepare_audio(
-                state.train_data, trainer.load_batch(state.train_data, step, BATCH),
+                state.train_data, trainer.load_batch(state.train_data, step, batch_size),
                 device)
 
         def step(i, audio):
@@ -137,9 +144,11 @@ def main() -> None:
     device_ms = sum(by_class.values())
     median_ms = float(np.median(step_ms))
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0), "batch": BATCH,
+        "card": torch.cuda.get_device_name(0), "config": args.load,
+        "batch": batch_size,
+        "grad_accum_steps": int(cfg.get("grad_accum_steps", 1)),
         "duration_s": DURATION_S, "step_ms": step_ms, "data_ms": data_ms,
-        "median_step_ms": median_ms, "clips_per_s": BATCH / (median_ms / 1e3),
+        "median_step_ms": median_ms, "clips_per_s": batch_size / (median_ms / 1e3),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "traced_wall_ms": traced_s * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (traced_s * 1e3),

@@ -5,6 +5,7 @@ state dicts, both optimizers and the step) and ``{save_path}/{tag}/meta.json``
 (the step and the tracker's state). ``latest`` is written at every save,
 ``best`` when the validation mel loss improves, ``{N}k`` at ``save_iters``.
 Tensors are saved as they are, so a load restores them bit for bit.
+``load_gen_params`` gives an inference CLI its generator's parameters.
 """
 
 from __future__ import annotations
@@ -78,3 +79,29 @@ def load_checkpoint(save_path, state: TrainState, tag: str = "latest") -> TrainS
 def load_metadata(save_path, tag: str = "latest") -> Dict[str, Any]:
     with open(Path(save_path) / tag / "meta.json") as f:
         return json.load(f)
+
+
+def load_gen_params(cfg, model, device=None):
+    """``model`` (a live ``DAC_VRVQ``) with its parameters from the config,
+    on ``device`` (the card by default), as the JAX package's
+    ``load_gen_params`` gives them: a reference-layout state dict at
+    ``torch_ckpt`` (``{"state_dict": ...}`` as the JAX package's
+    ``save_torch_checkpoint`` writes, or the dict itself); else the
+    generator of the port's checkpoint ``ckpt_path`` (or ``ckpt_dir``) at
+    ``tag`` (``latest`` by default); else drawn from seed 0."""
+    from .. import resolve_device
+    from ..convert import init_params, state_dict_from_reference
+
+    device = resolve_device("cuda" if device is None else device)
+    torch_ckpt = cfg.get("torch_ckpt")
+    base = cfg.get("ckpt_path") or cfg.get("ckpt_dir")
+    if torch_ckpt:
+        sd = torch.load(torch_ckpt, map_location="cpu", weights_only=True)
+        model.load_state_dict(state_dict_from_reference(sd.get("state_dict", sd), model))
+    elif base:
+        sd = torch.load(Path(base) / cfg.get("tag", "latest") / STATE_FILE,
+                        map_location="cpu", weights_only=True)
+        model.load_state_dict(sd["generator"])
+    else:
+        init_params(model, torch.Generator().manual_seed(0))
+    return model.to(device)

@@ -1,32 +1,38 @@
 """Training orchestration: config -> state -> steps, with validation and
 tagged checkpoints, resumable.
 
-Counterpart of ``vrvq_tpu/train/trainer.py``. ``cfg`` is a plain dict with
-the merged YAML's keys (``config.FLAGSHIP_TRAIN``): ``"DAC_VRVQ.n_codebooks"``,
-scoped ``"train/AudioDataset.duration"``, ``"lambdas"`` and so on. Batches
-are drawn by index (step * batch_size + i), so a resumed run reads what an
-uninterrupted one would; each step's random levels come from a
-``torch.Generator`` seeded from ``(seed, step)``, as the JAX trainer folds
-the step into its key. Data are loaded on the host between steps (no
-prefetch thread); the transforms run on the device. Not ported: the split
-and accumulated steps, data parallelism, sample logging and TensorBoard.
+Counterpart of ``vrvq_tpu/train/trainer.py``. ``cfg`` is a ``config.Config``
+(``Config.load("conf/<exp>.yml")``; a plain dict of the merged YAML's keys
+is wrapped in one): binding keys such as ``DAC_VRVQ.n_codebooks``, scoped
+keys read under ``cfg.scope("train")`` or ``"val"``, plain keys such as
+``lambdas``. A key that the port does not implement raises with its name
+(``check_keys``). Batches are drawn by index (step * batch_size + i), so a
+resumed run reads what an uninterrupted one would; each step's random draws
+come from a ``torch.Generator`` seeded from ``(seed, step)``, as the JAX
+trainer folds the step into its key. Data are loaded on the host between
+steps (no prefetch thread); the transforms run on the device.
+``grad_accum_steps`` K takes each update over K micro-batches
+(``loop.make_train_step``); ``split_train_step`` is the same update in the
+port. Not ported: data parallelism, ``remat``, ``amp``, sample logging and
+TensorBoard.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Union
 
 import numpy as np
 import torch
 
 from .. import disable_tf32, resolve_device
-from ..config import model_config
+from ..config import Config, ModelConfig, model_config
 from ..convert import init_params
 from ..data.loaders import AudioDataset, AudioLoader, ConcatDataset
-from ..data.transforms import build_transform
+from ..data.transforms import TRANSFORMS, build_transform
 from ..losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
 from ..models.dac_vrvq import DAC_VRVQ
 from ..models.discriminator import Discriminator
@@ -35,22 +41,71 @@ from .loop import make_train_step, make_val_step
 from .state import TrainState, make_optimizer
 from .tracker import Tracker
 
+# plain keys the trainer and the train CLI read
+TRAIN_KEYS = {"resume", "overwrite_ok", "tag", "batch_size", "val_batch_size",
+              "num_iters", "save_iters", "valid_freq", "seed", "lambdas",
+              "grad_accum_steps", "split_train_step", "save_path", "device"}
+# keys of the JAX trainer that change nothing the port computes
+NO_EFFECT = {
+    "num_workers": "the port loads each batch on the host, with no worker pool",
+    "sample_freq": "audio samples go to TensorBoard, which the port does not "
+                   "write (nor does the JAX trainer without tensorboardX)",
+    "val_idx": "as sample_freq",
+    "transforms_on_host": "the port applies the transforms on the device",
+}
+# keys the port takes only at the value it runs
+FIXED = {"amp": False, "remat": False}
 
-def cfg_kwargs(cfg: Mapping, prefix: str, scope: Optional[str] = None) -> Dict:
-    """``{prefix}.{name}`` keys as kwargs, ``{scope}/{prefix}.{name}`` over
-    them."""
-    out = {k[len(prefix) + 1:]: v for k, v in cfg.items()
-           if k.startswith(prefix + ".")}
-    if scope is not None:
-        want = f"{scope}/{prefix}."
-        out.update({k[len(want):]: v for k, v in cfg.items() if k.startswith(want)})
+
+def _args(obj, skip=()) -> set:
+    if dataclasses.is_dataclass(obj):
+        return {f.name for f in dataclasses.fields(obj)}
+    return set(inspect.signature(obj).parameters) - {"self", *skip}
+
+
+def _bindings() -> Dict[str, set]:
+    """Each binding's arguments that the port implements."""
+    out = {
+        "DAC_VRVQ": _args(ModelConfig),
+        "Discriminator": _args(Discriminator),
+        "AdamW": {"lr", "betas"},
+        "ExponentialLR": {"gamma", "warmup"},
+        "MultiScaleSTFTLoss": _args(MultiScaleSTFTLoss),
+        "MelSpectrogramLoss": _args(MelSpectrogramLoss),
+        "AudioDataset": _args(AudioDataset, ("loaders", "sample_rate", "transform")),
+        "AudioLoader": _args(AudioLoader, ("sources",)),
+        "build_dataset": {"folders"},
+        "build_transform": {"augment_prob", "preprocess", "augment", "postprocess"},
+    }
+    out.update({name: _args(cls, ("name",)) for name, cls in TRANSFORMS.items()})
     return out
 
 
-def cfg_get(cfg: Mapping, key: str, scope: Optional[str] = None, default=None):
-    if scope is not None and f"{scope}/{key}" in cfg:
-        return cfg[f"{scope}/{key}"]
-    return cfg.get(key, default)
+def check_keys(cfg: Config) -> None:
+    """Raise on every key of ``cfg`` that the port's trainer does not
+    implement (or holds at a value it does not run), naming them all."""
+    bindings = _bindings()
+    bad = []
+    for key, value in cfg.to_dict().items():
+        scope, _, scoped = key.partition("/")
+        name = scoped if scoped and scope in ("train", "val", "test") else key
+        if "." in name:
+            prefix, arg = name.split(".", 1)
+            if arg not in bindings.get(prefix, ()):
+                bad.append(key)
+        elif name in FIXED:
+            if bool(value) != FIXED[name]:
+                bad.append(f"{key}: {value!r}")
+        elif name not in TRAIN_KEYS and name not in NO_EFFECT:
+            bad.append(key)
+    if bad:
+        raise NotImplementedError(
+            f"config keys the port does not implement: {bad} (ROADMAP Queue A "
+            "items 6-8)")
+
+
+def as_config(cfg: Union[Config, Mapping]) -> Config:
+    return cfg if isinstance(cfg, Config) else Config(dict(cfg))
 
 
 @dataclasses.dataclass
@@ -71,22 +126,24 @@ class State:
     data_ms: List[float] = dataclasses.field(default_factory=list)
 
 
-def build_dataset(cfg: Mapping, sample_rate: int, scope: str):
+def build_dataset(cfg: Config, sample_rate: int, scope: str):
     """The scope's (``train``/``val``) dataset over its folders, with its
     transform."""
-    transform = build_transform(
-        augment_prob=cfg_get(cfg, "build_transform.augment_prob", scope, 1.0),
-        preprocess=cfg_get(cfg, "build_transform.preprocess", scope),
-        augment=cfg_get(cfg, "build_transform.augment", scope),
-        postprocess=cfg_get(cfg, "build_transform.postprocess", scope),
-    )
-    folders = cfg_get(cfg, "build_dataset.folders", scope, {}) or {}
-    datasets = [
-        AudioDataset(AudioLoader(sources=sources, **cfg_kwargs(cfg, "AudioLoader", scope)),
-                     sample_rate, transform=transform,
-                     **cfg_kwargs(cfg, "AudioDataset", scope))
-        for sources in folders.values()
-    ]
+    with cfg.scope(scope):
+        transform = build_transform(
+            augment_prob=cfg.get("build_transform.augment_prob", 1.0),
+            preprocess=cfg.get("build_transform.preprocess"),
+            augment=cfg.get("build_transform.augment"),
+            postprocess=cfg.get("build_transform.postprocess"),
+            cfg=cfg,
+        )
+        folders = cfg.get("build_dataset.folders", {}) or {}
+        datasets = [
+            AudioDataset(AudioLoader(sources=sources, **cfg.kwargs("AudioLoader")),
+                         sample_rate, transform=transform,
+                         **cfg.kwargs("AudioDataset"))
+            for sources in folders.values()
+        ]
     dataset = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
     dataset.transform = transform
     return dataset
@@ -112,17 +169,21 @@ def prepare_audio(dataset, batch: Dict, device: torch.device) -> torch.Tensor:
     return dataset.transform(audio, **batch.get("transform_args", {})).contiguous()
 
 
-def load(cfg: Mapping, tracker: Tracker, save_path, resume: bool = False,
-         tag: str = "latest", device: torch.device = torch.device("cpu")) -> State:
+def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
+         resume: bool = False, tag: str = "latest", device=None) -> State:
     """Build the networks (drawn from ``seed``, or resumed from ``tag``),
-    optimizers, steps and datasets."""
+    optimizers, steps and datasets, on the card unless ``device`` says
+    otherwise."""
+    cfg = as_config(cfg)
+    check_keys(cfg)
+    device = resolve_device("cuda" if device is None else device)
     seed = int(cfg.get("seed", 0))
     draw = torch.Generator().manual_seed(seed)
     generator = init_params(DAC_VRVQ(model_config(cfg)), draw).to(device)
     discriminator = init_params(
-        Discriminator(**cfg_kwargs(cfg, "Discriminator")), draw).to(device)
+        Discriminator(**cfg.kwargs("Discriminator")), draw).to(device)
 
-    adamw, explr = cfg_kwargs(cfg, "AdamW"), cfg_kwargs(cfg, "ExponentialLR")
+    adamw, explr = cfg.kwargs("AdamW"), cfg.kwargs("ExponentialLR")
     opt_kw = dict(lr=adamw.get("lr", 1e-4), betas=tuple(adamw.get("betas", (0.8, 0.99))),
                   gamma=explr.get("gamma", 1.0), warmup=explr.get("warmup", 0))
     train_state = TrainState(
@@ -131,8 +192,8 @@ def load(cfg: Mapping, tracker: Tracker, save_path, resume: bool = False,
         make_optimizer(discriminator.parameters(), max_grad_norm=10.0, **opt_kw))
 
     waveform_loss = L1Loss()
-    stft_loss = MultiScaleSTFTLoss(**cfg_kwargs(cfg, "MultiScaleSTFTLoss"))
-    mel_kw = cfg_kwargs(cfg, "MelSpectrogramLoss")
+    stft_loss = MultiScaleSTFTLoss(**cfg.kwargs("MultiScaleSTFTLoss"))
+    mel_kw = cfg.kwargs("MelSpectrogramLoss")
     mel_kw.setdefault("sample_rate", generator.sample_rate)
     mel_loss = MelSpectrogramLoss(**mel_kw)
     lambdas = cfg.get("lambdas", {})
@@ -146,7 +207,8 @@ def load(cfg: Mapping, tracker: Tracker, save_path, resume: bool = False,
 
     return State(
         train_state=train_state,
-        train_step=make_train_step(lambdas, stft_loss, mel_loss, waveform_loss),
+        train_step=make_train_step(lambdas, stft_loss, mel_loss, waveform_loss,
+                                   accum_steps=int(cfg.get("grad_accum_steps", 1))),
         val_step=make_val_step(stft_loss, mel_loss, waveform_loss),
         train_data=build_dataset(cfg, generator.sample_rate, "train"),
         val_data=build_dataset(cfg, generator.sample_rate, "val"),
@@ -173,11 +235,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train(cfg: Mapping, save_path: str = "ckpt", device=None) -> State:
-    """Train for ``num_iters`` steps (from the ``latest`` checkpoint with
-    ``resume``), validating and saving at every ``valid_freq``-th step and
-    the last. Runs on the card unless ``device`` says otherwise; float32
-    with TF32 off, as the JAX package trains (``amp: false``)."""
+def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
+          device=None) -> State:
+    """Train for ``num_iters`` steps (from the ``tag`` checkpoint, ``latest``
+    by default, with ``resume``), validating and saving at every
+    ``valid_freq``-th step and the last. Runs on the card unless ``device``
+    says otherwise; float32 with TF32 off, as the JAX package trains
+    (``amp: false``)."""
+    cfg = as_config(cfg)
+    check_keys(cfg)
     device = resolve_device("cuda" if device is None else device)
     disable_tf32()
     latest = Path(save_path) / "latest"
