@@ -2,7 +2,7 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It builds
-the kernels (one ``nvcc`` call), then runs eleven phases and prints one
+the kernels (one ``nvcc`` call), then runs twelve phases and prints one
 line for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
@@ -85,7 +85,8 @@ CUDA graph of launches, each after a copy that evicts the L2 cache, less the
 graph of copies alone), taken on the inputs that the kernel was compared on.
 Then a JSON line of the kernels on the main paths (K2 in each mode summed
 over the census of the path that runs it, each shape weighted by its
-launches, and over the pool's census; K1 at one window's 72 frames and at a
+launches, and over the pool's census; K2's exact bfloat16 mode over the
+bfloat16 encoder's census; K1 at one window's 72 frames and at a
 pool batch's 576, and at 28 stages; K2's forward and backward over the train
 step's census, in the exact and in the polynomial mode), each
 with the launches of its path (counts cleared just before the path runs,
@@ -97,6 +98,7 @@ exits non-zero; without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -115,6 +117,7 @@ from vrvq_tpu_torch.infer import fast, streaming
 from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config, model_config
 from vrvq_tpu_torch.kernels import build
 from vrvq_tpu_torch.metrics import si_sdr
+from vrvq_tpu_torch.models.importance import ImportanceSubnet
 from vrvq_tpu_torch.models.quantize import VBRResidualVectorQuantize
 from vrvq_tpu_torch.ops import rvq_kernel as rvq_ops
 from vrvq_tpu_torch.ops import snake as snake_ops
@@ -160,6 +163,11 @@ CBR_YAML = "conf/original_dac/cbr.yml"
 CLI_STEPS = 3
 CBR_STEPS = 2
 CLI_TIMEOUT_S = 420
+# the models phase: DAC_MOE's VBR levels and train batch (x TRAIN_DURATION_S),
+# and a per-stage codebook_dim list at the flagship's width
+MOE_LEVELS = (0.5, 1.0, 2.0)
+MOE_TRAIN_BATCH = 4
+STAGE_WIDTHS = (16, 16, 8, 8, 8, 8, 4, 4)
 RVQ_WIDE_SHAPES = [(8, 1024, 1024, d) for d in (1, 2, 3, 16, 32)] + [
     (8, 1000, 1000, 8), (8, 6, 6, 8)]
 
@@ -270,14 +278,15 @@ def serve_clip(model):
     return port.Signal(port.synthetic_clip(10.0, sr, SEED), sr)
 
 
-def serve(model, signal, **request):
+def serve(model, signal, fused: bool = True, **request):
     """The serving path of ``model`` on ``signal``: compress (``request``:
-    VBR at level 1 by default, or a CBR ``n_quantizers``; 1 s windows, fused
-    quantizer), the ``.dac`` saved and loaded, decompress. A warm-up round
-    trip (cuBLAS/cuDNN handles, allocator) takes the census of the Snake
-    kernel's (mode, shape) -> launches; the launch counts are cleared just
-    before the timed round trip and read just after."""
-    proc = port.CodecProcessor(model, fused_quantizer=True)
+    VBR at level 1 by default, or a CBR ``n_quantizers``; 1 s windows, the
+    fused quantizer unless ``fused`` is off), the ``.dac`` saved and loaded,
+    decompress. A warm-up round trip (cuBLAS/cuDNN handles, allocator) takes
+    the census of the Snake kernel's (mode, shape) -> launches; the launch
+    counts are cleared just before the timed round trip and read just
+    after."""
+    proc = port.CodecProcessor(model, fused_quantizer=fused)
     request = request or {"level": 1.0}
 
     def round_trip(tmp):
@@ -299,7 +308,7 @@ def serve(model, signal, **request):
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
     seconds = signal.signal_duration
-    assert launches.get("rvq", 0) > 0, launches
+    assert (launches.get("rvq", 0) > 0) == fused, launches
     for mode in {m for m, _ in census}:
         assert launches.get(mode, 0) == sum(
             n for (m, _), n in census.items() if m == mode), (census, launches)
@@ -753,12 +762,12 @@ def snake_backward_check(shape, gen, approx: bool = False):
     return out
 
 
-def config_serve(model, signal, **request):
+def config_serve(model, signal, fused: bool = True, **request):
     """``serve`` of ``model`` at ``request``, against the port's plain path
     on the same clip: code flips split by near ties (the smallest top-2
     margin over all of the frame's stages), VBR counts, and the SI-SDR of the
     kernel decode against the plain decode of the same ``.dac``."""
-    run = serve(model, signal, **request)
+    run = serve(model, signal, fused, **request)
     dac = run["dac"]
     plain = MarginProcessor(model)
     ref = plain.compress(signal, win_duration=WINDOW_S, **request)
@@ -771,7 +780,6 @@ def config_serve(model, signal, **request):
         assert dac.vbr_counts is None and dac.codes.shape[1] == request["n_quantizers"]
     sdr = si_sdr(run["out"].audio_data, plain.decompress(dac).audio_data)
     assert sdr >= MIN_SISDR_DB, (request, sdr)
-    assert run["launches"]["rvq"] > 0, run["launches"]
     return {"request": request, "codes_shape": list(dac.codes.shape), **split,
             "decode_si_sdr_db": sdr, "dac_bytes": run["dac_bytes"],
             "launches": run["launches"],
@@ -807,6 +815,187 @@ def configs_phase(gen):
     del m24
     torch.cuda.empty_cache()
     return {**rvq_28, "launches": rows["24kbps_level1"]["launches"]["rvq"]}
+
+
+def router_params(cfg) -> int:
+    """Parameters of DAC_MOE's router: a Linear from the feature to Nq."""
+    return cfg.feature_dim * cfg.n_codebooks + cfg.n_codebooks
+
+
+def moe_vbr(moe, signal):
+    """DAC_MOE's VBR serving path (``encode`` at a level, then
+    ``decode_from_codes(codes, mask)``, one shot on the padded clip) with
+    the kernels, against ``use_kernels(False)`` on the card: flips split by
+    near ties, masks equal, decode SI-SDR; K2's launches of a clip at
+    level 1 (counts cleared just before, read just after)."""
+    plain = moe.clone(padding=True).use_kernels(False)
+    audio = moe.preprocess(torch.from_numpy(
+        np.asarray(signal.audio_data, np.float32)).to(DEVICE))
+    out = {}
+    with torch.inference_mode():
+        weights = rvq_ops.stack_quantizer_weights(moe.quantizer)
+        z = plain.encoder(audio)
+        near_tie = (rvq_ops.reference_margins(
+            z.transpose(1, 2).reshape(-1, z.shape[1]), *weights)
+            <= TIE_MARGIN).reshape(z.shape[0], -1).cpu().numpy()
+        for level in MOE_LEVELS:
+            got, want = moe.encode(audio, level=level), plain.encode(audio, level=level)
+            split = flips(got["codes"].cpu().numpy(), want["codes"].cpu().numpy(),
+                          near_tie)
+            assert split["flipped_off_tie"] == 0, (level, split)
+            assert torch.equal(got["mask_imp"], want["mask_imp"]), level
+            mask = got["mask_imp"]
+            prefix = (mask[:, 1:] <= mask[:, :-1]).all(dim=1)
+            out[str(level)] = {**split,
+                               "mean_kept_stages": mask.sum(dim=1).mean().item(),
+                               "prefix_mask_frames": prefix.float().mean().item()}
+        build.LAUNCHES.clear()
+        got = moe.encode(audio, level=1.0)
+        kernel_audio = moe.decode_from_codes(got["codes"], got["mask_imp"])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        plain_audio = plain.decode_from_codes(got["codes"], got["mask_imp"])
+        sdr = si_sdr(kernel_audio.cpu().numpy(), plain_audio.cpu().numpy())
+    assert sdr >= MIN_SISDR_DB, sdr
+    assert set(launches) == {"snake"}, launches
+    return {"levels": out, "decode_si_sdr_db": sdr, "launches_a_clip": launches}
+
+
+def moe_train_step(moe, sr):
+    """One train forward and backward of DAC_MOE at batch
+    ``MOE_TRAIN_BATCH`` x ``TRAIN_DURATION_S`` with seeded draws: every
+    parameter (the router's too) a finite non-zero gradient; K2's forward
+    and backward launches."""
+    moe.train()
+    x = torch.from_numpy(np.concatenate([
+        port.synthetic_clip(TRAIN_DURATION_S, sr, SEED + 200 + i)
+        for i in range(MOE_TRAIN_BATCH)])).to(DEVICE)
+    draws = torch.Generator(device=DEVICE).manual_seed(SEED)
+    build.LAUNCHES.clear()
+    out = moe(x, train=True, generator=draws)
+    loss = ((out["audio"] - x).abs().mean() + out["vq/commitment_loss"]
+            + out["vq/codebook_loss"])
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    bad = [n for n, p in moe.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool(torch.count_nonzero(p.grad))]
+    assert not bad, f"parameters without a finite non-zero gradient: {bad}"
+    assert launches.get("snake", 0) == launches.get("snake_backward", -1) > 0, launches
+    assert launches.get("rvq", 0) == 0, launches
+    router = moe.quantizer.router.weight.grad.abs().max().item()
+    moe.zero_grad(set_to_none=True)
+    moe.eval()
+    return {"batch": MOE_TRAIN_BATCH, "duration_s": TRAIN_DURATION_S,
+            "loss": loss.item(), "launches": launches,
+            "router_max_abs_grad": router,
+            "params_with_gradient": sum(1 for _ in moe.parameters())}
+
+
+def bf16_encoder(model, signal, gen):
+    """The flagship through ``make_inference_model(encode_dtype=bfloat16)``
+    and the exact fast profile, each serving the clip: K2's exact bfloat16
+    mode bit-identical to its plain version at every shape the encoder gave
+    it, timed over that census; K1 on the bfloat16 latents of three windows
+    against the plain quantizer on the same latents; as numbers only, the
+    codes and masks against the exact profile's, decode SI-SDR and RTFs."""
+    runs = {"exact": serve(fast.make_inference_model(model), signal),
+            "bf16_encoder": serve(fast.make_inference_model(
+                model, encode_dtype=torch.bfloat16), signal)}
+    run, exact = runs["bf16_encoder"], runs["exact"]
+    census = of_mode(run["census"], "snake_bf16")
+    assert census and run["launches"]["snake_bf16"] == sum(census.values())
+    with torch.inference_mode():
+        checks = [snake_check(s, gen, "snake_bf16") for s in sorted(census)]
+    row = {**census_row(checks, census), "launches": run["launches"]["snake_bf16"],
+           "path": "bf16_encoder"}
+    proc = run["proc"]
+    rvq = proc.prepared_rvq()
+    window, hop, _, _ = proc.window_geometry(WINDOW_S)
+    audio = proc.put_batch(np.asarray(signal.audio_data, np.float32))
+    k1 = []
+    with torch.inference_mode():
+        for i in range(3):
+            z = proc.model_nopad.encoder(audio[..., i * hop: i * hop + window])
+            frames = z.transpose(1, 2).reshape(-1, z.shape[1]).contiguous()
+            c = kt.rvq_compare(rvq_ops, frames, rvq.weights, rvq, None)
+            assert c["flipped_off_tie"] == 0 and c["max_abs_err"] <= ZQ_ATOL, c
+            k1.append({"frames": frames.shape[0], **c})
+    stage = np.arange(model.n_codebooks)[None, :, None]
+    masks = [stage < r["dac"].vbr_counts[:, None, :] for r in (exact, run)]
+    return row, {
+        "k1_on_bf16_latents": k1,
+        "snake_bf16_census": row,
+        "code_share_differing_from_exact": float((run["dac"].codes
+                                                  != exact["dac"].codes).mean()),
+        "mask_agreement_with_exact": float((masks[0] == masks[1]).mean()),
+        "decode_si_sdr_db_against_exact": si_sdr(run["out"].audio_data,
+                                                 exact["out"].audio_data),
+        "launches": run["launches"],
+        **{f"{name}_{k}": r[k] for name, r in runs.items()
+           for k in ("encode_rtf", "decode_rtf")}}
+
+
+def models_phase(gen):
+    """The model surface at flagship width (the ``DAC_VRVQ.*`` keys of
+    ``conf/vrvq/vrvq_a2.yml``) on the serve phase's clip: DAC_MOE in VBR
+    (encode at three levels, decode, the VBR compress raise), in CBR at 8
+    and 4 stages through ``CodecProcessor``, and one train step; the
+    bfloat16 encoder profile (returns its K2 row); per-stage codebook
+    widths on the module path."""
+    cfg = model_config(Config.load(FLAGSHIP_YAML, base_dir=REPO))
+    moe = port.build_model(cfg, device=DEVICE, seed=SEED, model_class=port.DAC_MOE)
+    with torch.device("meta"):
+        n_imp = sum(p.numel() for p in ImportanceSubnet(
+            cfg.feature_dim, cfg.feature_dim).parameters())
+    n_moe = sum(p.numel() for p in moe.parameters())
+    assert n_moe == FLAGSHIP_PARAMS - n_imp + router_params(cfg), n_moe
+    signal = serve_clip(moe)
+    vbr = moe_vbr(moe, signal)
+    try:
+        port.CodecProcessor(moe).compress(signal, win_duration=WINDOW_S, level=1.0)
+        raise AssertionError("a VBR compress of DAC_MOE did not raise")
+    except NotImplementedError as e:
+        vbr["compress_raises"] = str(e)
+    cbr = {f"nq{nq}": config_serve(moe, signal, fused=False, n_quantizers=nq)
+           for nq in (8, 4)}
+    train = moe_train_step(moe, moe.sample_rate)
+    del moe
+    torch.cuda.empty_cache()
+
+    model = port.build_model(cfg, device=DEVICE, seed=SEED)
+    bf16_row, bf16 = bf16_encoder(model, signal, gen)
+    del model
+    torch.cuda.empty_cache()
+
+    wide = port.build_model(dataclasses.replace(cfg, codebook_dim=STAGE_WIDTHS),
+                            device=DEVICE, seed=SEED)
+    try:
+        port.CodecProcessor(wide, fused_quantizer=True)
+        raise AssertionError("the fused quantizer took mixed widths")
+    except ValueError as e:
+        fused_raise = str(e)
+    run = serve(wide, signal, fused=False)
+    dac = run["dac"]
+    with tempfile.TemporaryDirectory() as tmp:
+        back = port.DACFile.load(dac.save(Path(tmp) / "w.dac"))
+    # a VBR .dac stores the codes its counts keep
+    kept = np.arange(cfg.n_codebooks)[None, :, None] < dac.vbr_counts[:, None, :]
+    assert np.array_equal(back.vbr_counts, dac.vbr_counts)
+    assert np.array_equal(back.codes[kept], dac.codes[kept])
+    assert np.isfinite(run["out"].audio_data).all()
+    widths = {"codebook_dim": list(STAGE_WIDTHS),
+              "params": sum(p.numel() for p in wide.parameters()),
+              "codes_shape": list(dac.codes.shape),
+              "mean_kept_codebooks": float(dac.vbr_counts.mean()),
+              "dac_round_trip_exact": True, "fused_raises": fused_raise,
+              **{k: run[k] for k in ("encode_rtf", "decode_rtf", "launches")}}
+    del wide
+    torch.cuda.empty_cache()
+    phase("models", moe_params=n_moe, moe_vbr=vbr, moe_cbr=cbr, moe_train=train,
+          bf16_encoder=bf16, stage_widths=widths)
+    return bf16_row
 
 
 def train_phase(gen):
@@ -1106,6 +1295,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     rvq_24kbps = configs_phase(gen)
+    bf16_encoder_row = models_phase(gen)
     train_rows = train_phase(gen)
     torch.cuda.empty_cache()
     cli_rows = cli_phase(gen)
@@ -1125,6 +1315,10 @@ def main() -> int:
             mode, {**row, "max_abs_err": max(row["max_abs_err"], mode_errors[mode])},
             per=f"{row['path']} profile, 10 s clip: {row['launches']} launches "
                 f"over {row['shapes']} shapes", **source))
+    snake_rows.append(kernel_row(
+        "snake_bf16_encoder", bf16_encoder_row,
+        per=f"bf16-encoder profile, 10 s clip: {bf16_encoder_row['launches']} "
+            f"launches over {bf16_encoder_row['shapes']} encoder shapes", **source))
     for mode, row in pool_snake.items():
         snake_rows.append(kernel_row(
             f"{mode}_pool", row,

@@ -154,7 +154,7 @@ def test_cli_inference_writes_the_sweep(tiny, runs):
 def test_unported_config_keys_raise_with_their_names(tiny, tmp_path):
     """Repair (a): each of these keys used to be ignored without a word."""
     for extra, name in ((["--remat", "true"], "remat"),
-                        (["--DAC_VRVQ.latent_dim", "256"], "DAC_VRVQ.latent_dim"),
+                        (["--DAC_VRVQ.encoder_packed", "true"], "DAC_VRVQ.encoder_packed"),
                         (["--Discriminator.channels", "32"], "Discriminator.channels"),
                         (["--zero", "true"], "zero")):
         with pytest.raises(NotImplementedError, match=name):

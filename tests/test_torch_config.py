@@ -100,8 +100,11 @@ def test_model_config_of_every_config():
     assert (cbr.model_type, cbr.quantizer_dropout) == ("CBR", 0.5)
     fast = tconfig.model_config(Config.load("conf/vrvq/vrvq_a2_fast.yml", base_dir=REPO))
     assert fast.encoder_snake_approx and fast.decoder_snake_approx
-    with pytest.raises(NotImplementedError, match="DAC_VRVQ.latent_dim"):
-        tconfig.model_config(Config({**flagship.to_dict(), "DAC_VRVQ.latent_dim": 512}))
+    wide = tconfig.model_config(Config({**flagship.to_dict(), "DAC_VRVQ.latent_dim": 512}))
+    assert (wide.latent_dim, wide.resolved_latent_dim) == (512, 512)
+    with pytest.raises(NotImplementedError, match="DAC_VRVQ.encoder_packed"):
+        tconfig.model_config(Config({**flagship.to_dict(),
+                                     "DAC_VRVQ.encoder_packed": True}))
 
 
 BLOCKED_YAML = textwrap.dedent("""

@@ -29,6 +29,11 @@ bit-identical); a grad-requiring Snake on the card has a ``grad_fn`` and
 plain autograd's gradients; the bfloat16 modes and K1 raise under grad; one
 train step at the flagship width reaches every parameter. The CBR codec and
 a 28-stage codec serve through K1 as the plain path does.
+
+The model surface: K2's exact bfloat16 mode at every shape of the
+bfloat16-encoder profile and K1 on that profile's latents; ``DAC_MOE``'s
+kernel path against its plain path; the fused quantizer refusing mixed
+codebook widths.
 """
 
 import numpy as np
@@ -421,3 +426,100 @@ def test_flagship_train_step_reaches_every_parameter(cuda):
     for net in (gen, disc):
         for name, p in net.named_parameters():
             assert p.grad is not None and torch.count_nonzero(p.grad) > 0, name
+
+
+def _bf16_encoder_census(cuda):
+    """The (mode, shape) -> launches of the flagship's bfloat16-encoder
+    profile over one 1 s padding-free window and one padded 1 s clip, and
+    the profile."""
+    from vrvq_tpu_torch import kernel_times as kt
+    from vrvq_tpu_torch.infer import fast
+
+    model = port.build_model(port.FLAGSHIP, device=cuda, seed=0)
+    bf16 = fast.make_inference_model(model, encode_dtype=torch.bfloat16)
+    window = port.CodecProcessor(bf16).window_geometry(1.0)[0]
+    x = torch.from_numpy(port.synthetic_clip(1.5, 44100, 2)).to(cuda)
+    with torch.inference_mode(), kt.snake_census(bf16.encoder, by_mode=True) as census:
+        bf16.clone(padding=False).encoder(x[..., :window])
+        bf16.encoder(x[..., :44032])
+    return census, bf16
+
+
+def test_snake_bf16_at_every_bf16_encoder_shape(cuda):
+    """K2's exact bfloat16 mode bit-identical to its plain version at every
+    shape the bfloat16 encoder gives it (channels 64 to 1024)."""
+    census, _ = _bf16_encoder_census(cuda)
+    shapes = sorted(s for m, s in census if m == "snake_bf16")
+    assert {m for m, _ in census} == {"snake_bf16"}
+    assert {s[1] for s in shapes} == {64, 128, 256, 512, 1024}
+    gen = torch.Generator().manual_seed(0)
+    for shape in shapes:
+        x = (3.0 * torch.randn(shape, generator=gen)).to(cuda, torch.bfloat16)
+        alpha = (0.5 + torch.rand(shape[1], generator=gen)).to(cuda)
+        with torch.inference_mode():
+            _assert_snake_matches_plain(x, alpha, approx=False)
+
+
+def test_fused_rvq_on_bf16_latents_matches_plain(cuda):
+    """K1 on the bfloat16 encoder's float32 latents: the plain quantizer's
+    codes off near ties."""
+    _, bf16 = _bf16_encoder_census(cuda)
+    x = torch.from_numpy(port.synthetic_clip(1.0, 44100, 3)).to(cuda)
+    with torch.inference_mode():
+        z = bf16.encoder(x[..., :44032])
+        assert z.dtype == torch.float32
+        frames = z.transpose(1, 2).reshape(-1, z.shape[1]).contiguous()
+        w = rvq_kernel.stack_quantizer_weights(bf16.quantizer)
+        zq, codes = rvq_kernel.fused_rvq(frames, *w)
+        _assert_matches_plain(frames, w, None, zq, codes)
+
+
+def test_moe_kernel_path_matches_plain_path(cuda):
+    """A small DAC_MOE on the card: encode at three levels with the Snake
+    kernel against the plain Snake (masks equal, codes equal off near
+    ties), ``decode_from_codes`` within 1e-4, CBR serving through
+    ``CodecProcessor`` as the plain path serves; its VBR compress and the
+    fused quantizer raise."""
+    model = port.build_model(port.small_config(), device=cuda, seed=5,
+                             model_class=port.DAC_MOE)
+    plain = model.clone(padding=True).use_kernels(False)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 1, 16384)
+                         .astype(np.float32) * 0.3).to(cuda)
+    w = rvq_kernel.stack_quantizer_weights(model.quantizer)
+    with torch.inference_mode():
+        z = plain.encoder(x)
+        near_tie = (rvq_kernel.reference_margins(
+            z.transpose(1, 2).reshape(-1, z.shape[1]), *w) <= 1e-5).reshape(2, -1)
+        before = LAUNCHES["snake"]
+        for level in (0.5, 1.0, 2.0):
+            got, want = model.encode(x, level=level), plain.encode(x, level=level)
+            assert torch.equal(got["mask_imp"], want["mask_imp"])
+            flipped = (got["codes"] != want["codes"]).any(dim=1)
+            assert not (flipped & ~near_tie).any()
+        assert LAUNCHES["snake"] > before
+        a = model.decode_from_codes(got["codes"], got["mask_imp"])
+        b = plain.decode_from_codes(got["codes"], got["mask_imp"])
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    sig = port.Signal(np.random.RandomState(4).randn(44100).astype(np.float32) * 0.2,
+                      44100)
+    kernel_path = port.CodecProcessor(model).compress(sig, win_duration=0.5,
+                                                      n_quantizers=3)
+    plain_path = port.CodecProcessor(plain).compress(sig, win_duration=0.5,
+                                                     n_quantizers=3)
+    assert (kernel_path.codes != plain_path.codes).mean() < 0.01
+    with pytest.raises(NotImplementedError, match="prefix"):
+        port.CodecProcessor(model).compress(sig, level=1.0)
+    with pytest.raises(ValueError, match="DAC_VRVQ only"):
+        port.CodecProcessor(model, fused_quantizer=True)
+
+
+def test_fused_quantizer_raises_on_mixed_widths_on_the_card(cuda):
+    model = port.build_model(port.small_config(codebook_dim=(8, 4, 4, 2)),
+                             device=cuda, seed=1)
+    with pytest.raises(ValueError, match=r"\[8, 4, 4, 2\]"):
+        port.CodecProcessor(model, fused_quantizer=True)
+    with pytest.raises(ValueError, match="one codebook width"):
+        rvq_kernel.stack_quantizer_weights(model.quantizer)
+    sig = port.Signal(port.synthetic_clip(1.0, 44100, 2), 44100)
+    dac = port.CodecProcessor(model).compress(sig, win_duration=0.5, level=1.0)
+    assert dac.codes.shape[1] == 4 and dac.vbr_counts is not None

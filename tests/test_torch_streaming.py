@@ -262,7 +262,7 @@ def chunk_models():
 def test_decode_chunked_matches_one_shot_and_jax(chunk_models, t_frames, chunk):
     jm, jp, tm = chunk_models["decode"]
     rng = np.random.RandomState(0)
-    z_q = rng.randn(2, tm.config.latent_dim, t_frames).astype(np.float32)
+    z_q = rng.randn(2, tm.config.resolved_latent_dim, t_frames).astype(np.float32)
     with torch.inference_mode():
         z = torch.from_numpy(z_q)
         full = tm.decode(z).numpy()

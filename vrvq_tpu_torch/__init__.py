@@ -43,18 +43,20 @@ from .config import FLAGSHIP, ModelConfig, small_config  # noqa: E402
 from .convert import init_params, state_dict_from_jax  # noqa: E402
 from .infer.codec_api import CodecProcessor  # noqa: E402
 from .models.codec import DACFile  # noqa: E402
+from .models.dac_moe import DAC_MOE  # noqa: E402
 from .models.dac_vrvq import DAC_VRVQ  # noqa: E402
 
 
 def build_model(config: ModelConfig = FLAGSHIP, *,
                 device: Union[str, torch.device] = "cuda",
                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                seed: int = 0) -> DAC_VRVQ:
-    """A ``DAC_VRVQ`` in eval mode on ``device``: with ``state_dict`` loaded
-    (strict), else drawn by ``init_params`` from ``seed``."""
+                seed: int = 0, model_class: type = DAC_VRVQ) -> DAC_VRVQ:
+    """A codec (``DAC_VRVQ``, or ``model_class=DAC_MOE``) of ``config`` in
+    eval mode on ``device``: with ``state_dict`` loaded (strict), else drawn
+    by ``init_params`` from ``seed``."""
     device = resolve_device(device)
     disable_tf32()
-    model = DAC_VRVQ(config)
+    model = model_class(config)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:
@@ -63,7 +65,7 @@ def build_model(config: ModelConfig = FLAGSHIP, *,
 
 
 __all__ = [
-    "CodecProcessor", "DACFile", "DAC_VRVQ", "FLAGSHIP", "ModelConfig",
+    "CodecProcessor", "DACFile", "DAC_MOE", "DAC_VRVQ", "FLAGSHIP", "ModelConfig",
     "Signal", "build_model", "disable_tf32", "init_params", "resolve_device",
     "small_config", "state_dict_from_jax", "synthetic_clip",
 ]

@@ -31,7 +31,7 @@ import re
 import sys
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 # ------------------------------------------------------------------ YAML
 
@@ -404,18 +404,22 @@ def parse_args(argv: Optional[Iterable[str]] = None, base_dir=None) -> Config:
 class ModelConfig:
     """The ``DAC_VRVQ.*`` keys the port builds a codec from. ``model_type``
     is ``VBR`` (importance-masked stages) or ``CBR`` (the constant-bitrate
-    quantizer with quantizer dropout). The two ``snake_approx`` fields train
-    and run that stack with the polynomial Snake; ``detach_imp_map_input``
-    stops the importance subnet's gradient at its input."""
+    quantizer with quantizer dropout). ``codebook_dim`` is one width for
+    every stage or a tuple of one a stage; ``latent_dim`` is the encoder's
+    output width (None: it doubles at every stride, ``resolved_latent_dim``).
+    The two ``snake_approx`` fields train and run that stack with the
+    polynomial Snake; ``detach_imp_map_input`` stops the importance subnet's
+    gradient at its input."""
 
     sample_rate: int = 44100
     encoder_dim: int = 64
     encoder_rates: Tuple[int, ...] = (2, 4, 8, 8)
+    latent_dim: Optional[int] = None
     decoder_dim: int = 1536
     decoder_rates: Tuple[int, ...] = (8, 8, 4, 2)
     n_codebooks: int = 8
     codebook_size: int = 1024
-    codebook_dim: int = 8
+    codebook_dim: Union[int, Tuple[int, ...]] = 8
     model_type: str = "VBR"
     level_min: float = 0.125
     level_max: float = 6.0
@@ -432,15 +436,20 @@ class ModelConfig:
     def __post_init__(self):
         if self.model_type not in ("VBR", "CBR"):
             raise ValueError(f"Invalid RVQ model_type: {self.model_type!r}")
-        if not isinstance(self.codebook_dim, int):
-            raise NotImplementedError(
-                "a per-stage codebook_dim list is not ported (ROADMAP Queue A "
-                f"item 6); got {self.codebook_dim!r}")
+        if not isinstance(self.codebook_dim, int):  # a YAML list: hashable
+            object.__setattr__(self, "codebook_dim", tuple(self.codebook_dim))
 
     @property
-    def latent_dim(self) -> int:
-        """The encoder's output width: it doubles at every stride."""
+    def feature_dim(self) -> int:
+        """The width of the encoder's feature, after its last block (it
+        doubles at every stride)."""
         return self.encoder_dim * (2 ** len(self.encoder_rates))
+
+    @property
+    def resolved_latent_dim(self) -> int:
+        """The encoder's output width: ``latent_dim``, else
+        ``feature_dim``."""
+        return self.feature_dim if self.latent_dim is None else self.latent_dim
 
 
 FLAGSHIP = ModelConfig()
@@ -462,7 +471,7 @@ def model_config(cfg: Config) -> ModelConfig:
     for key in ("encoder_rates", "decoder_rates"):
         if key in kw:
             kw[key] = tuple(kw[key])
-    return ModelConfig(**kw)
+    return ModelConfig(**kw)  # a codebook_dim list becomes a tuple there
 
 
 def small_config(**overrides) -> ModelConfig:

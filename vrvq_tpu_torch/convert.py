@@ -13,13 +13,19 @@ flax path ``encoder/block_0/res0/conv1/v`` is the port's state-dict key
     follows its layer's grouping (per out-channel, per IN-channel for a
     transposed conv).
 
+``DAC_MOE``'s router is a flax ``Dense``: its ``kernel (in, Nq)`` becomes
+the port's ``Linear`` ``weight (Nq, in)``, its ``bias`` stays. Per-stage
+codebook widths need no rule (each stage keeps its own shapes), nor does
+``DenoisingBlock`` (``res{i}.*``, ``snake``, ``conv``: the conv rules).
+
 A folded tree (``vrvq_tpu.infer.fast.make_inference_model``) converts too:
 its ``w`` takes ``v``'s layout change, and a bfloat16 leaf stays bfloat16,
 for the port's folded modules (``nn/fold.py``).
 
 A reference-layout state dict (the PyTorch DAC_VRVQ's names and shapes, as
 the JAX package's ``export_torch_state_dict`` and ``save_torch_checkpoint``
-write it) converts by ``state_dict_from_reference``, VBR or CBR.
+write it) converts by ``state_dict_from_reference``, VBR, CBR or
+``DAC_MOE`` (whose ``quantizer.router.{weight, bias}`` keep their layout).
 
 The discriminator converts likewise (``discriminator_state_dict_from_jax``):
 a 2-D conv ``v`` is flax ``(kh, kw, in, out)``, the port's ``(out, in, kh,
@@ -63,13 +69,16 @@ def _tensor(value: np.ndarray) -> torch.Tensor:
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX ``DAC_VRVQ``'s parameter tree (numpy leaves, with or without
-    the top-level ``params`` key), live or folded -> the port's
-    ``state_dict``."""
+    """The JAX ``DAC_VRVQ``'s or ``DAC_MOE``'s parameter tree (numpy leaves,
+    with or without the top-level ``params`` key), live or folded -> the
+    port's ``state_dict``."""
     tree = params.get("params", params)
     sd = {}
     for key, value in _flatten(tree).items():
         parts = key.split(".")
+        if parts[-2:] == ["router", "kernel"]:  # Dense (in, Nq) -> Linear
+            sd[".".join(parts[:-1] + ["weight"])] = _tensor(value.T)
+            continue
         transposed_conv = parts[-2:-1] == ["up"]
         if parts[-1] in ("v", "w") and value.ndim == 3 and not transposed_conv:
             value = np.transpose(value, (2, 1, 0))  # (k, in, out) -> (out, in, k)
@@ -80,7 +89,7 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 # a residual unit's layers in the reference's Sequential
 _UNIT = {"snake1": 0, "conv1": 1, "snake2": 2, "conv2": 3}
 _LEAF = {"v": "weight_v", "g": "weight_g", "bias": "bias", "alpha": "alpha",
-         "codebook": "codebook.weight"}
+         "codebook": "codebook.weight", "weight": "weight"}
 
 
 def _reference_module(path: str, n_enc: int, n_dec: int) -> str:
@@ -96,6 +105,7 @@ def _reference_module(path: str, n_enc: int, n_dec: int) -> str:
         (r"encoder\.out_conv", lambda m: f"encoder.block.{n_enc + 2}"),
         (r"quantizer\.quantizers_(\d+)(\.in_proj|\.out_proj)?",
          lambda m: f"quantizer.quantizers.{m[1]}{m[2] or ''}"),
+        (r"quantizer\.router", lambda m: "quantizer.router"),
         (r"quantizer\.imp_subnet\.in_snake", lambda m: "quantizer.imp_subnet.in_block.0"),
         (r"quantizer\.imp_subnet\.in_conv", lambda m: "quantizer.imp_subnet.in_block.1"),
         (r"quantizer\.imp_subnet\.snake_(\d+)", lambda m: f"quantizer.imp_subnet.blocks.{m[1]}.0"),
@@ -117,11 +127,11 @@ def _reference_module(path: str, n_enc: int, n_dec: int) -> str:
 
 def state_dict_from_reference(state_dict: Mapping, model) -> Dict[str, torch.Tensor]:
     """A reference-layout ``state_dict`` (tensors or numpy arrays) -> the
-    state dict of ``model`` (a live ``DAC_VRVQ``, VBR or CBR), each tensor in
-    the port's shape: conv ``weight_v`` keeps its layout, a quantizer
-    projection's ``(out, in, 1)`` becomes ``(in, out)``, ``weight_g`` and
-    Snake ``alpha`` lose their unit axes. A key of either side that the
-    other lacks raises."""
+    state dict of ``model`` (a live ``DAC_VRVQ`` or ``DAC_MOE``, VBR or
+    CBR), each tensor in the port's shape: conv ``weight_v`` keeps its
+    layout, a quantizer projection's ``(out, in, 1)`` becomes ``(in, out)``,
+    ``weight_g`` and Snake ``alpha`` lose their unit axes. A key of either
+    side that the other lacks raises."""
     cfg = model.config
     n_enc, n_dec = len(cfg.encoder_rates), len(cfg.decoder_rates)
     out, used = {}, set()
@@ -164,7 +174,9 @@ def init_params(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.
     the CPU from ``generator``, as the JAX package initializes: conv and
     projection ``v`` uniform in +-1/sqrt(fan_in), ``g = ||v||`` (so the
     effective weight is ``v``), zero biases, codebooks N(0, 1), Snake
-    alpha 1."""
+    alpha 1, and ``DAC_MOE``'s router as flax's ``Dense``: the weight from
+    a normal of variance 1/fan_in truncated at two standard deviations
+    (lecun_normal), a zero bias."""
     from .models.discriminator import WNConv2d
 
     for m in model.modules():
@@ -189,4 +201,10 @@ def init_params(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.
             m.codebook.copy_(torch.randn(m.codebook.shape, generator=generator))
         elif isinstance(m, Snake1d):
             m.alpha.fill_(1.0)
+        elif isinstance(m, torch.nn.Linear):
+            # lecun_normal: the truncation's 0.8796 restores the variance
+            std = 1.0 / math.sqrt(m.in_features) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                        b=2 * std, generator=generator)
+            m.bias.zero_()
     return model

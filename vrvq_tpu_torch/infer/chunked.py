@@ -89,7 +89,7 @@ def encode_chunked(model, audio_data: torch.Tensor,
     if t <= win:
         z, feat = encoder(audio_data, return_feat=True)
     else:
-        d = model.config.latent_dim
+        d = model.config.resolved_latent_dim
         z = audio_data.new_zeros((b, d, t))
         feat = audio_data.new_zeros((b, d, t))
         for keep, s in _windows(t, chunk, halo):

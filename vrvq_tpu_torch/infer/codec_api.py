@@ -15,12 +15,18 @@ VBR: with ``level`` the per-frame codebook counts go into the ``.dac``
 (``vbr_counts``) and ``decompress`` rebuilds the stage mask from them. A CBR
 model (``model_type='CBR'``) codes at ``n_quantizers`` (all Nq by default).
 
+A ``DAC_MOE``'s VBR mask is not a prefix of the stages, which counts cannot
+hold: its VBR ``compress`` raises (CBR serves as any CBR request does), and
+its VBR serving path is ``model.encode`` at a level with
+``decode_from_codes(codes, mask)``.
+
 ``fused_quantizer=True`` encodes through the fused RVQ kernel
 (``ops/rvq_kernel.py``): encoder, importance subnet and counts (VBR only),
 then all Nq stages in one launch, of which a CBR request keeps the first
 ``n_quantizers``. Its weights are stacked and prepared once per
 ``compress`` call (once per stream object in ``infer/streaming.py``), from
-the model's parameters as they are then.
+the model's parameters as they are then. As in the JAX version it takes a
+``DAC_VRVQ`` only, and one codebook width for every stage.
 
 PyTorch runs eagerly, so the JAX version's jitted programs are plain calls
 here; there is one card, so no mesh. As in the JAX version, the windowed
@@ -44,9 +50,21 @@ from .. import disable_tf32
 from ..audio import Signal
 from ..models import codec as codec_arith
 from ..models.codec import DACFile
+from ..models.dac_moe import DAC_MOE
 from ..ops.masks import generate_mask_hard
-from ..ops.rvq_kernel import (prepare_rvq, quantize_fused,
-                               stack_quantizer_weights)
+from ..ops.rvq_kernel import (check_uniform_widths, prepare_rvq,
+                               quantize_fused, stack_quantizer_weights)
+
+
+def check_counts_hold_mask(model, vbr: bool) -> None:
+    """Raise for a VBR request of a model whose mask counts cannot hold."""
+    if vbr and not model.prefix_mask:
+        raise NotImplementedError(
+            f"{type(model).__name__}'s VBR mask thresholds each stage's "
+            "router score on its own, so it need not keep a prefix of the "
+            "stages, and the .dac's vbr_counts (stages kept a frame) cannot "
+            "hold it. Serve it with model.encode(audio, level=...) and "
+            "model.decode_from_codes(codes, mask), or at n_quantizers (CBR)")
 
 
 class CodecProcessor:
@@ -54,6 +72,12 @@ class CodecProcessor:
     share ``model``'s parameters and device."""
 
     def __init__(self, model, fused_quantizer: bool = False):
+        if fused_quantizer:
+            if isinstance(model, DAC_MOE):
+                raise ValueError(
+                    "fused_quantizer supports DAC_VRVQ only (the DAC_MOE "
+                    "router quantizer has a different importance path)")
+            check_uniform_widths(model.quantizer)
         disable_tf32()
         self.model = model.eval()
         self.model_nopad = model.clone(padding=False).eval()
@@ -177,6 +201,7 @@ class CodecProcessor:
         if vbr and not model.vbr:
             raise ValueError("a CBR model codes at n_quantizers; level is "
                              "for a VBR model")
+        check_counts_hold_mask(model, vbr)
         lv = level if level is not None else 1.0
         rvq = self.prepared_rvq()
 

@@ -17,10 +17,19 @@ Counterpart of ``vrvq_tpu/infer/fast.py``, with the same defaults:
     ties may flip. Serve it only behind ``turbo_gate`` on your checkpoint
     and audio.
 
-Both return a new ``DAC_VRVQ`` on the same device; the quantizer's tensors
-are shared with the given model, never copied or folded. The time-packed
-layouts (``encode_packed``, ``decode_packed``, ``decode_packed_up``) and a
-reduced-precision encoder (``encode_dtype``) are not ported and raise.
+  * ``make_inference_model(encode_dtype=torch.bfloat16)``: the encoder
+    folded into bfloat16 kernels and computed in bfloat16, its latents and
+    feature handed to the quantizer in float32 (JAX's casts). It moves
+    latents by bfloat16 rounding, so codes change: the JAX package records
+    that this profile failed its 30 dB gate on a trained checkpoint. With
+    ``decode_dtype=None`` the decoder computes in that dtype too, as the
+    JAX model's ``compute_dtype`` makes it.
+
+Both take a live ``DAC_VRVQ`` or ``DAC_MOE`` and return a new one of the
+same class on the same device; the quantizer's tensors are shared with the
+given model, never copied or folded. The time-packed layouts
+(``encode_packed``, ``decode_packed``, ``decode_packed_up``) are not ported
+and raise.
 """
 
 from __future__ import annotations
@@ -65,10 +74,11 @@ def make_inference_model(
     decode_packed: int = 0,
     decode_packed_up: int = 0,
 ) -> DAC_VRVQ:
-    """The fast profile of ``model`` (a live ``DAC_VRVQ``).
+    """The fast profile of ``model`` (a live ``DAC_VRVQ`` or ``DAC_MOE``).
 
-    ``decode_dtype``: the decoder's compute dtype (``None``: float32).
-    ``encode_dtype``: only ``None`` (the encoder in float32) is ported.
+    ``decode_dtype``: the decoder's compute dtype (``None``: the encoder's).
+    ``encode_dtype``: the encoder's (``None``: float32); another dtype
+    folds the encoder into kernels of that dtype.
     ``snake_approx``: the polynomial Snake in the decoder.
     ``encode_snake_approx``: in the encoder too (the turbo profile).
     ``fold_encoder``: fold the encoder's weight norm."""
@@ -76,22 +86,22 @@ def make_inference_model(
         raise NotImplementedError(
             "the time-packed layouts (encode_packed, decode_packed, "
             "decode_packed_up) are not ported: ROADMAP Queue A item 9")
-    if encode_dtype is not None:
-        raise NotImplementedError(
-            "a reduced-precision encoder (encode_dtype) is not ported: "
-            "ROADMAP Queue A item 6")
     if model.profile != Profile():
         raise ValueError("make_inference_model takes the live model")
+    fold_encoder = fold_encoder or encode_dtype is not None
+    decoder_dtype = decode_dtype if decode_dtype is not None else encode_dtype
     profile = Profile(
         encoder_folded=fold_encoder, decoder_folded=True,
-        decoder_compute_dtype=_dtype(decode_dtype),
+        decoder_compute_dtype=_dtype(decoder_dtype),
+        encoder_compute_dtype=_dtype(encode_dtype),
         encoder_snake_approx=encode_snake_approx,
         decoder_snake_approx=snake_approx,
     )
     state = _folded(model.state_dict(), "decoder.",
-                    None if decode_dtype is None else _dtype(decode_dtype))
+                    None if decoder_dtype is None else _dtype(decoder_dtype))
     if fold_encoder:
-        state = _folded(state, "encoder.", None)
+        state = _folded(state, "encoder.",
+                        None if encode_dtype is None else _dtype(encode_dtype))
     return model.with_state(state, profile=profile)
 
 
@@ -164,7 +174,11 @@ def synthetic_probe(sample_rate: int, seed: int) -> np.ndarray:
 def encode_codes(model: DAC_VRVQ, audio: torch.Tensor, level: float):
     """The serving encode of a padded codec: encoder and importance map as
     the module path computes them, the codes of all stages from the fused
-    RVQ kernel. audio (B, 1, T) -> (codes (B, Nq, T'), mask_imp (B, Nq, T'))."""
+    RVQ kernel (a ``DAC_MOE``: the module path, which the fused kernel does
+    not serve). audio (B, 1, T) -> (codes (B, Nq, T'), mask_imp (B, Nq, T'))."""
+    if not model.prefix_mask:
+        enc = model.encode(audio, level=level)
+        return enc["codes"], enc["mask_imp"]
     n_q = model.n_codebooks
     z, feat = model.encoder(audio, return_feat=True)
     imp_map = model.quantizer.importance(feat, z.shape[-1])

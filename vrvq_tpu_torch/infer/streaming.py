@@ -20,8 +20,10 @@ length) as state:
   * ``PacketCodec`` range-codes each chunk into one self-delimiting packet
     with adaptive models that persist across packets.
 
-There is one card, so no mesh. Algorithmic latency: the first chunk appears
-after ``window - delay`` real samples; each chunk covers ``hop`` samples.
+A ``DAC_MOE`` streams in CBR only: its VBR mask is no prefix of the stages
+(``infer/codec_api.py``). There is one card, so no mesh. Algorithmic
+latency: the first chunk appears after ``window - delay`` real samples; each
+chunk covers ``hop`` samples.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.rangecoder import AdaptiveCoder
-from .codec_api import CodecProcessor
+from .codec_api import CodecProcessor, check_counts_hold_mask
 
 
 def _padded_batch(b: int) -> int:
@@ -119,6 +121,7 @@ class StreamingEncoder:
         self.n_quantizers = n_quantizers
         self.level = level if level is not None else 1.0
         self.vbr = n_quantizers is None and level is not None
+        check_counts_hold_mask(proc.model, self.vbr)
         self.window, self.hop, self.chunk_frames, self.delay = (
             proc.window_geometry(win_duration))
         self._rvq = proc.prepared_rvq()
@@ -168,6 +171,7 @@ class StreamPool:
         self.n_quantizers = n_quantizers
         self.level = level if level is not None else 1.0
         self.vbr = n_quantizers is None and level is not None
+        check_counts_hold_mask(proc.model, self.vbr)
         self.max_batch = int(max_batch)
         self.window, self.hop, self.chunk_frames, self.delay = (
             proc.window_geometry(win_duration))

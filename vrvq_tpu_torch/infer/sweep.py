@@ -7,6 +7,10 @@ the stages, sums and decodes, and reports bits per frame and kbps.
 the whole sweep (windowed by ``decode_chunked`` past ``ONE_SHOT_FRAME_BATCH``
 frames, the JAX package's one-shot limit).
 
+A level's mask here is the prefix mask of ``DAC_VRVQ``'s importance map; a
+``DAC_MOE``'s mask is not one, so the sweep raises for it, as compress does
+(``infer/codec_api.py``).
+
 ``save_results`` writes each level's reconstruction, the input, a
 ``metadata.json`` of SI-SDR and kbps per level and, with ``png``, each
 level's mask as an image. The image is written by the port itself (numpy and
@@ -31,6 +35,7 @@ from ..audio import Signal
 from ..metrics import cal_bpf_from_mask, si_sdr
 from ..ops.masks import generate_mask_hard
 from .chunked import decode_chunked
+from .codec_api import check_counts_hold_mask
 
 DEFAULT_LEVELS = [0.2, 0.3, 0.4, 0.5, 0.6, 0.8, 1, 1.2, 1.5, 2, 2.5, 3]
 ONE_SHOT_FRAME_BATCH = 24 * 862
@@ -40,6 +45,7 @@ class LevelSweep:
     """Encode-once / decode-per-level runner over a padded ``DAC_VRVQ``."""
 
     def __init__(self, model):
+        check_counts_hold_mask(model, vbr=True)
         self.model = model
 
     def encode(self, audio: torch.Tensor) -> Dict:

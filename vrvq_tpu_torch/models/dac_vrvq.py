@@ -7,8 +7,10 @@ audio ``(B, 1, T)``, latents ``(B, D, T')``, codes ``(B, Nq, T')``.
 runs; ``clone(padding=...)`` gives the other variant on the same parameters.
 A ``Profile`` sets how the conv stacks run at inference (the JAX model's
 inference fields, ``vrvq_tpu/models/dac_vrvq.py``): folded weight norm,
-the polynomial Snake, per stack, and the decoder's compute dtype; ``infer/fast.py``
-builds the fast and turbo profiles. A stack's Snake is the config's
+the polynomial Snake and the compute dtype, per stack; ``infer/fast.py``
+builds the fast and turbo profiles. An encoder computing in bfloat16 hands
+its latents and feature to the quantizer in float32, as the JAX encoder
+does. A stack's Snake is the config's
 (``encoder_snake_approx``, ``decoder_snake_approx``, which training runs
 too) unless the profile sets it. The quantizer, with the importance subnet,
 always runs live in float32 with the exact Snake. ``forward(...,
@@ -35,48 +37,52 @@ from .quantize import ResidualVectorQuantize, VBRResidualVectorQuantize
 @dataclass(frozen=True)
 class Profile:
     """How each conv stack runs at inference. The defaults are the live
-    exact codec. The encoder computes in float32; a decoder compute dtype
-    other than float32 needs the decoder folded (its kernels are stored in
-    that dtype). A Snake field left ``None`` takes the config's."""
+    exact codec. A compute dtype other than float32 needs its stack folded
+    (its kernels are stored in that dtype). A Snake field left ``None``
+    takes the config's."""
 
     encoder_folded: bool = False
     decoder_folded: bool = False
     decoder_compute_dtype: torch.dtype = torch.float32
+    encoder_compute_dtype: torch.dtype = torch.float32
     encoder_snake_approx: Optional[bool] = None
     decoder_snake_approx: Optional[bool] = None
 
 
 class Encoder(nn.Module):
     """k=7 in conv -> EncoderBlocks (width doubles at each stride) -> Snake ->
-    k=3 out conv. (B, 1, T) -> (B, latent_dim, T'), in float32."""
+    k=3 out conv. (B, 1, T) -> (B, latent_dim, T'), float32 whatever
+    ``dtype`` the stack computes in."""
 
     def __init__(self, d_model: int, strides: Sequence[int], latent_dim: int,
                  padding: bool = True, folded: bool = False,
-                 snake_approx: bool = False):
+                 snake_approx: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         pad_mode = "zeros" if padding else "none"
+        self.dtype = dtype
         self.in_conv = WNConv1d(1, d_model, 7, padding=3, pad_mode=pad_mode,
-                                folded=folded)
+                                folded=folded, dtype=dtype)
         self.n_blocks = len(strides)
         d = d_model
         for i, stride in enumerate(strides):
             d *= 2
             self.add_module(f"block_{i}", EncoderBlock(
-                d, stride, padding, folded, snake_approx))
+                d, stride, padding, folded, snake_approx, dtype))
         self.snake = Snake1d(d, snake_approx)
         self.out_conv = WNConv1d(d, latent_dim, 3, padding=1, pad_mode=pad_mode,
-                                 folded=folded)
+                                 folded=folded, dtype=dtype)
 
     def forward(self, x: torch.Tensor, return_feat: bool = False):
         """With ``return_feat`` also the activation after the last block,
-        which feeds the importance subnet."""
-        x = self.in_conv(x)
+        which feeds the importance subnet (both float32)."""
+        x = self.in_conv(x.to(self.dtype))
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
         feat = x
-        x = self.out_conv(self.snake(x))
+        x = self.out_conv(self.snake(x)).float()
         if return_feat:
-            return x, feat
+            return x, feat.float()
         return x
 
 
@@ -117,9 +123,22 @@ def _either(profile_value: Optional[bool], config_value: bool) -> bool:
     return config_value if profile_value is None else profile_value
 
 
+def gated_kwargs(config: ModelConfig) -> dict:
+    """A ``GatedResidualVectorQuantize``'s arguments from ``config``."""
+    return dict(imp2mask_alpha=config.imp2mask_alpha,
+                quantizer_dropout=config.quantizer_dropout,
+                full_codebook_rate=config.full_codebook_rate,
+                level_min=config.level_min, level_max=config.level_max,
+                level_dist=config.level_dist)
+
+
 class DAC_VRVQ(nn.Module):
     """The codec. Parameters are left uninitialized: load them
     (``convert.state_dict_from_jax``) or draw them (``convert.init_params``)."""
+
+    # a VBR mask keeps a prefix of the stages, so per-frame counts (the
+    # .dac's vbr_counts) hold it
+    prefix_mask = True
 
     def __init__(self, config: ModelConfig, padding: bool = True,
                  profile: Profile = Profile()):
@@ -127,31 +146,42 @@ class DAC_VRVQ(nn.Module):
         self.config = config
         self.padding = padding
         self.profile = profile
-        latent_dim = config.latent_dim
+        latent_dim = config.resolved_latent_dim
         self.encoder = Encoder(
             config.encoder_dim, config.encoder_rates, latent_dim, padding,
             profile.encoder_folded,
-            _either(profile.encoder_snake_approx, config.encoder_snake_approx))
+            _either(profile.encoder_snake_approx, config.encoder_snake_approx),
+            dtype=profile.encoder_compute_dtype)
         if config.model_type == "CBR":
             self.quantizer = ResidualVectorQuantize(
                 latent_dim, config.n_codebooks, config.codebook_size,
                 config.codebook_dim, quantizer_dropout=config.quantizer_dropout)
         else:
-            self.quantizer = VBRResidualVectorQuantize(
-                latent_dim, config.n_codebooks, config.codebook_size,
-                config.codebook_dim, imp2mask_alpha=config.imp2mask_alpha,
-                quantizer_dropout=config.quantizer_dropout,
-                full_codebook_rate=config.full_codebook_rate,
-                level_min=config.level_min, level_max=config.level_max,
-                level_dist=config.level_dist,
-                detach_imp_map_input=config.detach_imp_map_input,
-            )
+            self.quantizer = self.vbr_quantizer(config, latent_dim)
         self.decoder = Decoder(
             latent_dim, config.decoder_dim, config.decoder_rates,
             padding=padding, folded=profile.decoder_folded,
             snake_approx=_either(profile.decoder_snake_approx,
                                  config.decoder_snake_approx),
             dtype=profile.decoder_compute_dtype)
+
+    @staticmethod
+    def vbr_quantizer(config: ModelConfig, latent_dim: int) -> nn.Module:
+        """The VBR quantizer: the stages gated by the importance subnet,
+        whose input width is the latents' and whose input is the encoder's
+        feature, so the two must be equal (the JAX model fails otherwise
+        too)."""
+        if latent_dim != config.feature_dim:
+            raise ValueError(
+                f"a VBR DAC_VRVQ's importance subnet takes latent_dim "
+                f"({latent_dim}) channels but reads the encoder's feature of "
+                f"{config.feature_dim}; set latent_dim to it (or None), or use "
+                f"model_type CBR or DAC_MOE")
+        return VBRResidualVectorQuantize(
+            latent_dim, config.n_codebooks, config.codebook_size,
+            config.codebook_dim,
+            detach_imp_map_input=config.detach_imp_map_input,
+            **gated_kwargs(config))
 
     # ------------------------------------------------------------ geometry
     @property
@@ -196,7 +226,7 @@ class DAC_VRVQ(nn.Module):
         copy), with ``padding`` and ``profile`` (this one's by default) and
         this one's Snake kernel switches and training mode."""
         with torch.device("meta"):
-            twin = DAC_VRVQ(self.config,
+            twin = type(self)(self.config,
                             padding=self.padding if padding is None else padding,
                             profile=self.profile if profile is None else profile)
         twin.load_state_dict(state_dict, assign=True)
@@ -254,8 +284,8 @@ class DAC_VRVQ(nn.Module):
                n_quantizers: Optional[int] = None,
                level: Optional[float] = 1.0) -> dict:
         """audio (B, 1, T) -> the quantizer's dict: z_q (B, D, T'), codes
-        (B, Nq, T'), latents; VBR also z_q_is, imp_map (B, 1, T'),
-        mask_imp."""
+        (B, Nq, T'), latents; VBR also z_q_is, imp_map (B, 1, T';
+        ``DAC_MOE``: B, Nq, T'), mask_imp."""
         z, feat = self.encoder(audio_data, return_feat=True)
         return self.quantize(z, feat, n_quantizers, level)
 

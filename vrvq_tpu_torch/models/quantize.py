@@ -18,12 +18,22 @@ stages in eval, all of them in train with per-sample quantizer dropout (the
 first ``int(B * quantizer_dropout)`` rows keep a depth drawn in [1, Nq]).
 Both quantizers rebuild z_q from codes (``from_codes``) and from the
 stages' latents (``from_latents``).
+
+``codebook_dim`` is one width for every stage or a sequence of one a stage
+(the JAX ``codebook_dims``); the latents of the stages then lie side by
+side at those widths.
+
+``GatedResidualVectorQuantize`` holds what the VBR quantizer shares with
+``DAC_MOE``'s router quantizer (``models/dac_moe.py``): the stages on the
+residual, the train-mode draws and batch partition, the masked sums. A
+subclass gives the per-frame scores (``importance``) and their mask
+(``gate``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -82,19 +92,26 @@ class VectorQuantize(nn.Module):
 
 
 class _Stages(nn.Module):
-    """``n_codebooks`` factorized-VQ stages (``quantizers_{i}``) and what
-    rebuilds z_q from their codes or latents."""
+    """``n_codebooks`` factorized-VQ stages (``quantizers_{i}``, stage i of
+    width ``codebook_dims[i]``) and what rebuilds z_q from their codes or
+    latents."""
 
     def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
-                 codebook_dim: int, quantizer_dropout: float = 0.0):
+                 codebook_dim: Union[int, Sequence[int]],
+                 quantizer_dropout: float = 0.0):
         super().__init__()
         self.n_codebooks = n_codebooks
-        self.codebook_dim = codebook_dim
+        self.codebook_dims = ([codebook_dim] * n_codebooks
+                              if isinstance(codebook_dim, int)
+                              else list(codebook_dim))
+        if len(self.codebook_dims) != n_codebooks:
+            raise ValueError(f"codebook_dim {codebook_dim} has "
+                             f"{len(self.codebook_dims)} entries for "
+                             f"{n_codebooks} codebooks")
         self.quantizer_dropout = quantizer_dropout
-        for i in range(n_codebooks):
+        for i, d in enumerate(self.codebook_dims):
             self.add_module(f"quantizers_{i}",
-                            VectorQuantize(input_dim, codebook_size,
-                                           codebook_dim))
+                            VectorQuantize(input_dim, codebook_size, d))
 
     @property
     def quantizers(self):
@@ -131,15 +148,17 @@ class _Stages(nn.Module):
         return z_q
 
     def from_latents(self, latents: torch.Tensor):
-        """latents (B, n * d, T), the stages' in-projections side by side ->
-        (z_q (B, D, T), z_p (B, n * d, T) the nearest codebook rows, codes
+        """latents (B, sum d_i, T), the stages' in-projections side by side ->
+        (z_q (B, D, T), z_p (B, sum d_i, T) the nearest codebook rows, codes
         (B, n, T)), over the whole stages the width holds."""
-        d = self.codebook_dim
-        n = min(latents.shape[1] // d, self.n_codebooks)
+        ends = [0]
+        for d in self.codebook_dims:
+            ends.append(ends[-1] + d)
+        n = max(i for i, end in enumerate(ends) if end <= latents.shape[1])
         z_q, z_p, codes = 0.0, [], []
         for i in range(n):
             q = self.quantizers[i]
-            z_p_i, codes_i = q.decode_latents(latents[:, i * d:(i + 1) * d, :])
+            z_p_i, codes_i = q.decode_latents(latents[:, ends[i]:ends[i + 1], :])
             z_p.append(z_p_i)
             codes.append(codes_i)
             z_q = z_q + q.out_proj(z_p_i)
@@ -206,21 +225,25 @@ class ResidualVectorQuantize(_Stages):
         return out
 
 
-class VBRResidualVectorQuantize(_Stages):
-    """All Nq stages run on the residual; a per-frame importance map gates how
-    many each frame keeps (VBR at a ``level``, or at random levels in
-    train mode), or ``n_quantizers`` stages are kept everywhere (CBR).
-    ``detach_imp_map_input`` stops the importance subnet's gradient at its
-    input, so the encoder gets none through it."""
+class GatedResidualVectorQuantize(_Stages):
+    """All Nq stages run on the residual; per-frame scores of the encoder's
+    feature gate which stages each frame keeps (at a ``level``, or at random
+    levels in train mode), or ``n_quantizers`` stages are kept everywhere
+    (CBR). Subclasses give ``importance`` (the scores, cropped to the latent
+    frames) and ``gate`` (their mask, straight-through)."""
+
+    # train mode draws levels in [level_min, level_max]: the JAX VBR
+    # quantizer asserts level_min < level_max, DAC_MOE's router <=
+    equal_levels_ok = False
 
     def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
-                 codebook_dim: int, imp2mask_alpha: float = 1.0,
+                 codebook_dim: Union[int, Sequence[int]],
+                 imp2mask_alpha: float = 1.0,
                  quantizer_dropout: float = 0.0,
                  full_codebook_rate: float = 0.0,
                  level_min: Optional[float] = None,
                  level_max: Optional[float] = None,
-                 level_dist: str = "uniform",
-                 detach_imp_map_input: bool = False):
+                 level_dist: str = "uniform"):
         super().__init__(input_dim, n_codebooks, codebook_size, codebook_dim,
                          quantizer_dropout)
         self.imp2mask_alpha = imp2mask_alpha
@@ -228,14 +251,19 @@ class VBRResidualVectorQuantize(_Stages):
         self.level_min = level_min
         self.level_max = level_max
         self.level_dist = level_dist
-        self.imp_subnet = ImportanceSubnet(input_dim, input_dim,
-                                           detach_input=detach_imp_map_input)
 
     def importance(self, feat_enc: torch.Tensor, frames: int) -> torch.Tensor:
-        """Importance map (B, 1, frames). A padding-free encoder's feature is
-        2 frames longer than z (its k=3 out conv shrinks unpadded): the map
-        is center-cropped to the latent frames."""
-        imp_map = self.imp_subnet(feat_enc)
+        raise NotImplementedError
+
+    def gate(self, scaled: torch.Tensor) -> torch.Tensor:
+        """The mask (B, Nq, T) of the scores scaled by ``level * Nq``."""
+        raise NotImplementedError
+
+    @staticmethod
+    def crop(imp_map: torch.Tensor, frames: int) -> torch.Tensor:
+        """A padding-free encoder's feature is 2 frames longer than z (its
+        k=3 out conv shrinks unpadded): the scores are center-cropped to the
+        latent frames."""
         extra = imp_map.shape[-1] - frames
         if extra > 0:
             lo = extra // 2
@@ -254,9 +282,12 @@ class VBRResidualVectorQuantize(_Stages):
         """Levels from uniform draws ``u`` in [0, 1): uniform or log-uniform
         in ``[level_min, level_max]``."""
         lo, hi = self.level_min, self.level_max
-        if lo is None or hi is None or not lo < hi:
+        ordered = lo is not None and hi is not None and (
+            lo <= hi if self.equal_levels_ok else lo < hi)
+        if not ordered:
             raise ValueError(
-                f"train mode needs level_min < level_max, got {lo}, {hi}")
+                f"train mode needs level_min {'<=' if self.equal_levels_ok else '<'}"
+                f" level_max, got {lo}, {hi}")
         if self.level_dist == "uniform":
             return u * (hi - lo) + lo
         if self.level_dist == "log_uniform":
@@ -286,7 +317,8 @@ class VBRResidualVectorQuantize(_Stages):
         ``train=True`` (VBR only) draws each clip's level from ``generator``
         (or takes ``levels (B,)``), gives the dropout rows depths drawn in
         [1, Nq] (or ``depths``), adds the masked ``commitment_loss`` and
-        ``codebook_loss`` and keeps the importance rows of ``imp_map``."""
+        ``codebook_loss`` and keeps the importance rows of ``imp_map``
+        (``DAC_MOE``'s router: ``imp_map (B, Nq, T)``)."""
         bs, _, frames = z.shape
         vbr = n_quantizers is None
         if train and not vbr:
@@ -318,10 +350,7 @@ class VBRResidualVectorQuantize(_Stages):
                     bs, 1, 1).to(z)
             else:
                 scale = level
-            mask_imp = generate_mask_ste(
-                imp_map * scale * self.n_codebooks, self.n_codebooks,
-                alpha=self.imp2mask_alpha,
-            )
+            mask_imp = self.gate(imp_map * scale * self.n_codebooks)
         else:
             # all-ones mask over the stages run (CBR inside the VBR model)
             imp_map = None
@@ -358,3 +387,26 @@ class VBRResidualVectorQuantize(_Stages):
             out["codebook_loss"] = torch.mean(
                 torch.sum(torch.stack(cbs, dim=1) * mask_sg, dim=1))
         return out
+
+
+class VBRResidualVectorQuantize(GatedResidualVectorQuantize):
+    """The VBR quantizer: a conv importance subnet gives one score per frame
+    (B, 1, T), whose scaled value sets how many stages the frame keeps (a
+    prefix of them). ``detach_imp_map_input`` stops the importance subnet's
+    gradient at its input, so the encoder gets none through it."""
+
+    def __init__(self, input_dim: int, n_codebooks: int, codebook_size: int,
+                 codebook_dim: Union[int, Sequence[int]],
+                 detach_imp_map_input: bool = False, **gated):
+        super().__init__(input_dim, n_codebooks, codebook_size, codebook_dim,
+                         **gated)
+        self.imp_subnet = ImportanceSubnet(input_dim, input_dim,
+                                           detach_input=detach_imp_map_input)
+
+    def importance(self, feat_enc: torch.Tensor, frames: int) -> torch.Tensor:
+        """Importance map (B, 1, frames)."""
+        return self.crop(self.imp_subnet(feat_enc), frames)
+
+    def gate(self, scaled: torch.Tensor) -> torch.Tensor:
+        return generate_mask_ste(scaled, self.n_codebooks,
+                                 alpha=self.imp2mask_alpha)

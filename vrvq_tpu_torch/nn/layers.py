@@ -12,8 +12,8 @@ runs; a ResidualUnit then center-crops its skip path to the shorter output.
 Inference (``infer/fast.py``): ``folded=True`` convs hold the effective
 kernel ``w`` (``nn/fold.py``) and skip the norm, in the ``dtype`` the stack
 computes in (float32 or bfloat16); ``Snake1d(approx=True)`` takes the
-polynomial ``sin^2``. The time-packed layouts and ``DenoisingBlock`` of the
-JAX module are not ported.
+polynomial ``sin^2``. The time-packed layouts of the JAX module are not
+ported. ``DenoisingBlock`` is, though no model of either package uses it.
 """
 
 from __future__ import annotations
@@ -154,17 +154,18 @@ class EncoderBlock(nn.Module):
     """3 ResidualUnits (dilations 1/3/9 at dim/2) + Snake + strided conv."""
 
     def __init__(self, dim: int, stride: int = 1, padding: bool = True,
-                 folded: bool = False, approx: bool = False):
+                 folded: bool = False, approx: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         half = dim // 2
-        self.res0 = ResidualUnit(half, 1, padding, folded, approx)
-        self.res1 = ResidualUnit(half, 3, padding, folded, approx)
-        self.res2 = ResidualUnit(half, 9, padding, folded, approx)
+        self.res0 = ResidualUnit(half, 1, padding, folded, approx, dtype)
+        self.res1 = ResidualUnit(half, 3, padding, folded, approx, dtype)
+        self.res2 = ResidualUnit(half, 9, padding, folded, approx, dtype)
         self.snake = Snake1d(half, approx)
         self.down = WNConv1d(half, dim, 2 * stride, stride=stride,
                              padding=math.ceil(stride / 2),
                              pad_mode="zeros" if padding else "none",
-                             folded=folded)
+                             folded=folded, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.res2(self.res1(self.res0(x)))
@@ -191,3 +192,22 @@ class DecoderBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.up(self.snake(x))
         return self.res2(self.res1(self.res0(x)))
+
+
+class DenoisingBlock(nn.Module):
+    """3 ResidualUnits (dilations 1/3/9) + Snake + k=3 conv, at ``dim``
+    channels throughout. The JAX package keeps it for inventory parity with
+    the reference; no model uses it. Its keys: ``res{0,1,2}.*``, ``snake``,
+    ``conv``."""
+
+    def __init__(self, dim: int = 16, padding: bool = True):
+        super().__init__()
+        self.res0 = ResidualUnit(dim, 1, padding)
+        self.res1 = ResidualUnit(dim, 3, padding)
+        self.res2 = ResidualUnit(dim, 9, padding)
+        self.snake = Snake1d(dim)
+        self.conv = WNConv1d(dim, dim, 3, padding=1,
+                             pad_mode="zeros" if padding else "none")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(self.snake(self.res2(self.res1(self.res0(x)))))

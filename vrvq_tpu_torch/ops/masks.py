@@ -3,7 +3,9 @@
 The scaled importance map ``x (B, 1, T)`` is compared with the stage
 thresholds 0..Nq-1: stage i is kept for a frame iff ``x - i >= 0``. Masks are
 ``(B, Nq, T)``. The straight-through mask has the hard mask's value and the
-smooth mask's gradient, as in the JAX code.
+smooth mask's gradient, as in the JAX code. ``DAC_MOE``'s router gives one
+score per stage instead, ``x (B, Nq, T)``: ``generate_mask_ste_moe``
+thresholds each at 0.5, with the first stages forced on.
 """
 
 from __future__ import annotations
@@ -50,3 +52,16 @@ def generate_mask_hard(x: torch.Tensor, nq: int) -> torch.Tensor:
     """Hard mask: stage i on iff ``x - i >= 0``."""
     xmnq = x - _stage_thresholds(nq, x)
     return (xmnq >= 0).to(x.dtype)
+
+
+def generate_mask_ste_moe(x: torch.Tensor, nq: int, alpha: float = 1.0,
+                          ns: int = 2) -> torch.Tensor:
+    """The router's mask: per-stage scores ``x (B, Nq, T)``, the first ``ns``
+    stages forced to 1, then kept where ``>= 0.5``. Straight-through: the
+    hard mask's value, the (forced) scores' gradient. ``alpha`` is accepted
+    and unused, as in the JAX code."""
+    del alpha
+    forced = torch.arange(nq, device=x.device).reshape(1, nq, 1) < ns
+    xm = torch.where(forced, torch.ones_like(x), x)
+    mask_quant = (xm >= 0.5).to(x.dtype)
+    return xm + (mask_quant - xm).detach()

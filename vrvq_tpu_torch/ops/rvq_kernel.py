@@ -38,11 +38,26 @@ class RVQWeights(NamedTuple):
     cb: torch.Tensor  # (Nq, K, d)
 
 
+def check_uniform_widths(quantizer) -> list:
+    """The quantizer's stages, if they share one codebook width; else
+    ``ValueError`` naming the widths."""
+    stages = list(quantizer.quantizers)
+    widths = [q.codebook.shape[1] for q in stages]
+    if len(set(widths)) > 1:
+        raise ValueError(
+            f"the fused quantizer takes one codebook width for every stage; "
+            f"this quantizer's are {widths}: serve it with "
+            f"fused_quantizer=False")
+    return stages
+
+
 def stack_quantizer_weights(quantizer) -> RVQWeights:
     """Resolve weight norm and stack every stage's projections and codebook.
 
-    ``quantizer``: a ``VBRResidualVectorQuantize`` (its ``quantizers``)."""
-    stages = list(quantizer.quantizers)
+    ``quantizer``: a ``VBRResidualVectorQuantize`` or the CBR quantizer (its
+    ``quantizers``). Stages of different codebook widths do not stack (the
+    JAX package's ``jnp.stack`` fails there too): ``ValueError``."""
+    stages = check_uniform_widths(quantizer)
     return RVQWeights(
         torch.stack([q.in_proj.weight() for q in stages]),
         torch.stack([q.in_proj.bias for q in stages]),
