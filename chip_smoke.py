@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
-Run from the repo root with no arguments: ``python3 chip_smoke.py``. It builds
-the kernels (one ``nvcc`` call), then runs twelve phases and prints one
-line for each:
+Run from the repo root with no arguments: ``python3 chip_smoke.py``. It
+builds the kernels (one ``nvcc`` call), then runs thirteen phases and prints
+one line for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
            the kernel build time;
@@ -78,7 +78,33 @@ line for each:
            ``conf/original_dac/cbr.yml`` for 2 steps at batch 16; the
            inference CLI's level sweep of one 1 s example from the first
            run's last checkpoint; K2's polynomial forward and backward
-           against their plain versions over the accumulated step's census.
+           against their plain versions over the accumulated step's census;
+  parallel the flagship's step at batch 16 x 0.38 s (``vrvq_a2.yml``, MPD +
+           MRD, the same pinned draws of the global batch throughout) in one
+           process, the reference, and again (the card's spread between two
+           runs of one step); (c) the same with ``remat`` (losses within 1e-5
+           relative, the update within 1e-4 relative L2: the gradients it
+           took, each network's as one vector, and the parameters of both,
+           ``agreement``; both peak memories, the step-time ratio, K2's
+           launches); (a) two gloo ranks on the one card (8 + 8 rows,
+           ZeRO-sharded AdamW) through ``trainer.load`` and the train step:
+           losses within 1e-4 relative of the one-rank step, the update
+           within 1e-3 relative L2, both ranks' parameters bit-identical,
+           the consolidated optimizer state in the replicated layout (their
+           ms: two ranks sharing a card, no scaling number), and K2's
+           forward and backward against their plain versions at every shape
+           of a rank's Snake census; (b) one NCCL rank through
+           ``cli.train``'s torchrun-environment path, one step and a save,
+           beside (a); with two or more cards also two NCCL ranks against
+           the one-rank step as in (a), with clips/s on 1 and 2 cards, and
+           ``cli.train`` with no flag (it spawns a rank a card);
+           (d) ``CodecProcessor(devices=[every card])`` through
+           ``StreamPool`` and ``DecoderPool`` on the pool phase's 8 streams x
+           10 s: codes against the one-card pool's (0 flips on one card; none
+           off a near tie on more), the one-card pool's codes decoded (the
+           same audio on one card; 60 dB on more), and with two or more
+           cards K1 and K2 (every mode, and the backward) on the last card
+           against their plain versions, at a card's block of the batch.
 
 Times are device times with a cold L2 (``vrvq_tpu_torch.kernel_times``: a
 CUDA graph of launches, each after a copy that evicts the L2 cache, less the
@@ -88,7 +114,10 @@ over the census of the path that runs it, each shape weighted by its
 launches, and over the pool's census; K2's exact bfloat16 mode over the
 bfloat16 encoder's census; K1 at one window's 72 frames and at a
 pool batch's 576, and at 28 stages; K2's forward and backward over the train
-step's census, in the exact and in the polynomial mode), each
+step's census, in the exact and in the polynomial mode; K2's forward and
+backward in the parallel phase's one-rank steps (the train step's census)
+and in its ranks' steps (a rank's census), K1 and K2 in its pool over the
+cards, timed at the pool's census), each
 with the launches of its path (counts cleared just before the path runs,
 read just after), the card's ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -99,7 +128,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -121,6 +152,7 @@ from vrvq_tpu_torch.models.importance import ImportanceSubnet
 from vrvq_tpu_torch.models.quantize import VBRResidualVectorQuantize
 from vrvq_tpu_torch.ops import rvq_kernel as rvq_ops
 from vrvq_tpu_torch.ops import snake as snake_ops
+from vrvq_tpu_torch.parallel import dist as pdist
 from vrvq_tpu_torch.train import trainer
 
 SEED = 0
@@ -170,6 +202,14 @@ MOE_TRAIN_BATCH = 4
 STAGE_WIDTHS = (16, 16, 8, 8, 8, 8, 4, 4)
 RVQ_WIDE_SHAPES = [(8, 1024, 1024, d) for d in (1, 2, 3, 16, 32)] + [
     (8, 1000, 1000, 8), (8, 6, 6, 8)]
+# the parallel phase: the flagship's step at batch 16 x 0.38 s in one rank
+# and in two (2 x 8 rows), remat against the plain step
+PAR_STEPS = 4  # step 1 compared, steps 2-4 timed
+PAR_LOSS_RTOL = 1e-4  # two ranks against one: every loss and grad norm
+PAR_UPDATE_REL_L2 = 1e-3  # the update: each network's gradient, the parameters
+REMAT_LOSS_RTOL = 1e-5  # remat against the plain step
+REMAT_UPDATE_REL_L2 = 1e-4
+PAR_TIMEOUT_S = 300
 
 
 _LAST_PHASE = [time.perf_counter()]
@@ -560,7 +600,7 @@ def pool_phase(model, gen):
                          if e.device_type == torch.autograd.DeviceType.CUDA)
 
     # the same windows one at a time (batch 1): codes, margins, decode
-    rvq = proc.prepared_rvq()
+    rvq = proc.prepared_rvq()[0]
     weights = rvq.weights
     by_stream = {sid: [(c, n) for s, c, n in chunks if s == sid] for sid in streams}
     single, margins, single_audio = {}, {}, {}
@@ -570,7 +610,7 @@ def pool_phase(model, gen):
             wb = streaming._WindowBuffer(window, hop, delay)
             codes, mins = [], []
             for w in wb.push(x) + wb.flush():
-                z = proc.model_nopad.encoder(proc.put_batch(w[None, None]))
+                z = proc.model_nopad.encoder(torch.from_numpy(w[None, None]).to(DEVICE))
                 frames = z.transpose(1, 2).reshape(-1, z.shape[1])
                 codes.append(rvq_ops.quantize_fused(rvq, z)[1][0].cpu().numpy())
                 mins.append(rvq_ops.reference_margins(frames, *weights).cpu().numpy())
@@ -624,7 +664,7 @@ def pool_phase(model, gen):
           compress_rtf=seconds / (t1 - t0), decompress_rtf=seconds / (t3 - t2),
           census_shapes=len(shapes), max_abs_err_by_mode=errors,
           snake_by_mode=rows)
-    return enc_launches, chunks, rows
+    return enc_launches, {"chunks": chunks, "margins": margins, "audio": audio}, rows
 
 
 def entropy_phase(model, serve_dac, chunks):
@@ -911,9 +951,9 @@ def bf16_encoder(model, signal, gen):
     row = {**census_row(checks, census), "launches": run["launches"]["snake_bf16"],
            "path": "bf16_encoder"}
     proc = run["proc"]
-    rvq = proc.prepared_rvq()
+    rvq = proc.prepared_rvq()[0]
     window, hop, _, _ = proc.window_geometry(WINDOW_S)
-    audio = proc.put_batch(np.asarray(signal.audio_data, np.float32))
+    audio = torch.from_numpy(np.asarray(signal.audio_data, np.float32)).to(DEVICE)
     k1 = []
     with torch.inference_mode():
         for i in range(3):
@@ -1250,6 +1290,398 @@ def cli_phase(gen):
             "per_step": {"forward": sum(fwd.values()), "backward": sum(bwd.values())}}
 
 
+def params_of(ts):
+    """Both networks' parameters by name (``generator.*``, ``discriminator.*``)."""
+    return {f"{net}.{n}": p for net, m in (("generator", ts.generator),
+                                            ("discriminator", ts.discriminator))
+            for n, p in m.named_parameters()}
+
+
+def digest(ts) -> str:
+    """A hash of every parameter's bits."""
+    h = hashlib.sha256()
+    for p in params_of(ts).values():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def snapshot(ts):
+    """Both networks' parameters and the gradients their last update took
+    (averaged over the ranks and clipped), on the host."""
+    ps = params_of(ts)
+    return {"params": {k: p.detach().to("cpu", copy=True) for k, p in ps.items()},
+            "grads": {k: p.grad.to("cpu", copy=True) for k, p in ps.items()}}
+
+
+def agreement(snap, ref, theta0) -> dict:
+    """How far one step 1 (``snap``) is from another (``ref``), both from
+    the parameters ``theta0``: the relative L2 of the gradients the update
+    took (its direction), each network's as one vector, and of the
+    parameters of both (what the bars hold), beside the latter's reading
+    for a state the step left unchanged; and, to read beside the card's own
+    spread between two runs of one step, the largest relative L2 of one
+    tensor's gradient, the update's (new minus old) relative L2 and the
+    elements whose update took the other sign. Adam's first update is about
+    lr x sign(g): an element whose gradient is float noise (another order of
+    a sum) may step the other way, which moves a small tensor far in
+    relative terms."""
+    names = list(ref["params"])
+
+    def flat(tree, net=""):
+        return torch.cat([tree[k].reshape(-1) for k in names if k.startswith(net)])
+
+    new, old, base = flat(snap["params"]), flat(ref["params"]), flat(theta0)
+    du, dr = new - base, old - base
+    return {"grad_rel_l2": {net: rel_l2(flat(snap["grads"], net + "."),
+                                        flat(ref["grads"], net + "."))
+                            for net in ("generator", "discriminator")},
+            "param_rel_l2": rel_l2(new, old),
+            "param_rel_l2_unchanged": rel_l2(base, old),
+            "max_tensor_grad_rel_l2": max(rel_l2(snap["grads"][k], g)
+                                          for k, g in ref["grads"].items()),
+            "update_rel_l2": rel_l2(du, dr),
+            "update_sign_flips": int(((du > 0) != (dr > 0)).sum()),
+            "elements": int(new.numel())}
+
+
+def rank_steps(state, batch_size, rows, draws, device, steps: int):
+    """Step 1 of the parallel phase's batch (this rank's ``rows`` of
+    ``batch_size``) on the pinned ``draws``; then steps 2.. on the loader's
+    batches and the step generator's draws, timed. Returns step 1's metrics,
+    its launches and the later steps' ms."""
+    ts = state.train_state
+
+    def batch(step):
+        return trainer.prepare_audio(state.train_data, trainer.load_batch(
+            state.train_data, step, batch_size, rows), device)
+
+    audio = batch(0)
+    build.LAUNCHES.clear()
+    metrics = state.train_step(ts, audio, levels=draws["levels"], depths=draws["depths"])
+    trainer._sync(device)
+    launches = dict(build.LAUNCHES)
+    step1 = {k: v.item() for k, v in metrics.items()}
+    ms = []
+    for step in range(1, steps):
+        audio = batch(step)
+        trainer._sync(device)
+        t0 = time.perf_counter()
+        state.train_step(ts, audio, generator=trainer.step_generator(SEED, step, device))
+        trainer._sync(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return step1, launches, ms
+
+
+def parallel_rank(device, root: str, steps: int) -> None:
+    """One rank of the parallel phase's groups: ``trainer.load`` with ZeRO,
+    this rank's rows of the global batch, ``rank_steps`` (step 1 under the
+    Snake census); rank 0 also keeps its ``snapshot`` after step 1
+    (``snap0.pt``); every rank checks the optimizers' consolidated state
+    dicts (the replicated layout on rank 0). Writes ``rank{r}.json``."""
+    root = Path(root)
+    case = torch.load(root / "case.pt", weights_only=False)
+    rank, world, batch = pdist.rank(), pdist.world(), int(case["cfg"]["batch_size"])
+    state = trainer.load(case["cfg"], trainer.Tracker(rank=rank), root / "ckpt",
+                         device=device, zero=True)
+    ts = state.train_state
+    rows = pdist.local_rows(batch, rank, world)
+    draws = {k: None if v is None else v.to(device) for k, v in case["draws"].items()}
+    with kt.snake_census(ts.generator) as census:
+        step1, launches, _ = rank_steps(state, batch, rows, draws, device, 1)
+    out = {"rank": rank, "world": world, "backend": pdist.dist.get_backend(),
+           "device": str(device), "rows": rows, "metrics": step1,
+           "launches": launches, "digest": digest(ts),
+           "snake_census": [[list(k), v] for k, v in sorted(census.items())]}
+    if rank == 0:
+        torch.save(snapshot(ts), root / "snap0.pt")
+    layouts = [opt.state_dict() for opt in (ts.opt_g, ts.opt_d)]
+    out["replicated_layout"] = (
+        all(sd is None for sd in layouts) if rank else
+        all(len(sd["adamw"]["state"]) == len(opt.params) and sd["count"] == 1
+            for sd, opt in zip(layouts, (ts.opt_g, ts.opt_d))))
+    out["step_ms"] = rank_steps(state, batch, rows, draws, device, steps)[2]
+    (root / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def loss_rel_err(metrics, ref) -> float:
+    return max(abs(metrics[k] - v) / max(abs(v), 1e-30) for k, v in ref.items())
+
+
+def group_against_one(root: Path, ref, theta0, n: int, steps: int, backend: str,
+                      devices):
+    """``parallel_rank`` in ``n`` processes against the one-rank step 1
+    (``ref``: metrics and ``snapshot``): every loss and grad norm within
+    ``PAR_LOSS_RTOL``, each gradient the update took and the parameters
+    within ``PAR_UPDATE_REL_L2`` (``agreement``), the ranks' parameters
+    bit-identical, each rank's K2 launches those of its Snake census."""
+    pdist.spawn(parallel_rank, n, str(root), steps, backend=backend,
+                devices=devices, timeout=PAR_TIMEOUT_S)
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(n)]
+    loss_err = max(loss_rel_err(r["metrics"], ref["metrics"]) for r in ranks)
+    agree = agreement(torch.load(root / "snap0.pt", weights_only=True), ref, theta0)
+    assert loss_err <= PAR_LOSS_RTOL, (loss_err, ranks[0]["metrics"], ref["metrics"])
+    assert max(agree["grad_rel_l2"].values()) <= PAR_UPDATE_REL_L2, agree
+    assert agree["param_rel_l2"] <= PAR_UPDATE_REL_L2, agree
+    assert len({r["digest"] for r in ranks}) == 1, [r["digest"] for r in ranks]
+    assert all(r["replicated_layout"] for r in ranks), ranks
+    census = ranks[0]["snake_census"]
+    for r in ranks:
+        per_step = sum(n for _, n in r["snake_census"])
+        assert r["snake_census"] == census, (r["snake_census"], census)
+        assert r["launches"].get("snake") == r["launches"].get("snake_backward") == per_step
+        assert r["metrics"]["other/batch_size"] == ref["metrics"]["other/batch_size"]
+    (root / "snap0.pt").unlink()
+    return {"backend": backend, "ranks": n, "devices": [str(d) for d in devices],
+            "rows": [r["rows"] for r in ranks], "max_loss_rel_err": loss_err,
+            **agree, "ranks_bit_identical": True,
+            "zero_checkpoint_layout": "replicated",
+            "step_ms": [r["step_ms"] for r in ranks],
+            "launches_step1": [r["launches"] for r in ranks], "snake_census": census}
+
+
+def one_rank(cfg, save, draws, steps: int, remat: bool = False):
+    """The flagship's step 1 on the whole batch of 16 (one process, no
+    group) and ``steps - 1`` timed steps: the parameters before step 1
+    (``theta0``), metrics and ``snapshot`` of step 1, K2's launches in step
+    1 and the peak memory of the steps."""
+    state = trainer.load({**cfg, "remat": remat}, trainer.Tracker(), save,
+                         device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch = int(cfg["batch_size"])
+    rows, ts = list(range(batch)), state.train_state
+    theta0 = {k: p.detach().to("cpu", copy=True) for k, p in params_of(ts).items()}
+    step1, launches, _ = rank_steps(state, batch, rows, draws, torch.device(DEVICE), 1)
+    snap = snapshot(ts)
+    ms = rank_steps(state, batch, rows, draws, torch.device(DEVICE), steps)[2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, ts
+    torch.cuda.empty_cache()
+    return {"metrics": step1, **snap, "launches": launches, "step_ms": ms,
+            "peak_memory_gib": peak, "theta0": theta0}
+
+
+def parallel_phase(gen, pool):
+    """See the module docstring. Returns the kernel rows' launches of the
+    path: the one-rank and remat steps (K2 forward and backward), the ranks'
+    steps (K2 forward and backward, with the checks at a rank's census) and
+    the pool over the cards (K1, K2)."""
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wav_dir = write_wavs(tmp / "wavs")
+        cfg = train_config(wav_dir)
+        with torch.device("meta"):  # the draws need the quantizer's config only
+            draws = port.DAC_VRVQ(model_config(trainer.as_config(cfg))).draws(
+                TRAIN_BATCH, trainer.step_generator(SEED, 0, torch.device(DEVICE)),
+                torch.device(DEVICE))
+
+        # (c) and the reference: one rank on the 16 rows, twice without remat
+        # (the second shows the card's own spread), then with remat
+        plain = one_rank(cfg, tmp / "one", draws, PAR_STEPS)
+        theta0 = plain.pop("theta0")
+        again = one_rank(cfg, tmp / "again", draws, 1)
+        remat = one_rank(cfg, tmp / "remat", draws, PAR_STEPS, remat=True)
+        path_launches = collections.Counter(plain["launches"]) + collections.Counter(
+            remat["launches"])
+        spread = {"max_loss_rel_err": loss_rel_err(again["metrics"], plain["metrics"]),
+                  **agreement(again, plain, theta0)}
+        remat_agree = {"max_loss_rel_err": loss_rel_err(remat["metrics"], plain["metrics"]),
+                       **agreement(remat, plain, theta0)}
+        assert remat_agree["max_loss_rel_err"] <= REMAT_LOSS_RTOL, remat_agree
+        assert max(remat_agree["grad_rel_l2"].values()) <= REMAT_UPDATE_REL_L2, remat_agree
+        assert remat_agree["param_rel_l2"] <= REMAT_UPDATE_REL_L2, remat_agree
+        assert remat["launches"]["snake"] > plain["launches"]["snake"] > 0, (remat, plain)
+        assert remat["launches"]["snake_backward"] == plain["launches"]["snake_backward"] > 0
+
+        case = {"cfg": cfg, "draws": {k: None if v is None else v.cpu()
+                                      for k, v in draws.items()}}
+        # (b) one NCCL rank through cli.train's torchrun path, beside (a)
+        cli_save = tmp / "nccl1"
+        env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(pdist.free_port())}
+        over = cli_overrides(wav_dir, cli_save, 1, batch_size=TRAIN_BATCH)
+        cli_run = subprocess.Popen(
+            [sys.executable, "-m", "vrvq_tpu_torch.cli.train", "--args.load",
+             FLAGSHIP_YAML, *argv(over)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), time.perf_counter()
+        # (a) two gloo ranks on the one card, ZeRO on
+        (tmp / "gloo").mkdir()
+        torch.save(case, tmp / "gloo" / "case.pt")
+        ref = {k: plain[k] for k in ("metrics", "params", "grads")}
+        gloo = group_against_one(tmp / "gloo", ref, theta0, 2, 2, "gloo",
+                                 [torch.device(DEVICE, 0)] * 2)
+        line, cli_s = finish_cli(cli_run)
+        nccl1 = json.loads(line)
+        rank_census = {tuple(sh): n for sh, n in gloo["snake_census"]}
+        rank_fwd = [snake_check(sh, gen) for sh in rank_census]
+        rank_bwd = [snake_backward_check(sh, gen) for sh in rank_census]
+        assert (nccl1["world"], nccl1["backend"], nccl1["steps"]) == (1, "nccl", 1), nccl1
+        assert all(np.isfinite(v) for v in nccl1["metrics"][0].values())
+        assert (cli_save / "latest" / "state.pt").exists()
+        nccl2 = spawned = None
+        if cards >= 2:  # (b) two NCCL ranks on two cards; cli.train's spawn
+            (tmp / "nccl2").mkdir()
+            torch.save(case, tmp / "nccl2" / "case.pt")
+            nccl2 = group_against_one(tmp / "nccl2", ref, theta0, 2, PAR_STEPS, "nccl",
+                                      [torch.device(DEVICE, i) for i in range(2)])
+            assert nccl2["snake_census"] == gloo["snake_census"]
+            line, spawn_s = finish_cli(start_cli("train", [
+                "--args.load", FLAGSHIP_YAML,
+                *argv(cli_overrides(wav_dir, tmp / "spawned", 2,
+                                    batch_size=TRAIN_BATCH))]))
+            spawned = json.loads(line)
+            want = pdist.data_world_size(TRAIN_BATCH, cards)
+            assert (spawned["world"], spawned["backend"]) == (want, "nccl"), spawned
+            assert all(np.isfinite(v) for m in spawned["metrics"] for v in m.values())
+            spawned = {k: spawned[k] for k in ("world", "backend", "steps", "step_ms",
+                                               "peak_memory_gib")}
+            spawned["cli_s"] = spawn_s
+        del ref, theta0
+
+    # (d) the pool of 8 streams over every card against the one-card pool
+    devices = [torch.device(DEVICE, i) for i in range(cards)]
+    model = port.build_model(port.FLAGSHIP, device=DEVICE, seed=SEED)
+    proc = port.CodecProcessor(model, fused_quantizer=True, devices=devices)
+    sr = model.sample_rate
+    streams = {f"s{i}": port.synthetic_clip(POOL_CLIP_S, sr, SEED + 10 + i)[0, 0]
+               for i in range(POOL_STREAMS)}
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    pooled = streaming.StreamPool(proc, win_duration=WINDOW_S, level=1.0,
+                                  max_batch=POOL_STREAMS)
+    chunks = []
+    for sid in streams:
+        pooled.add_stream(sid)
+    for start in range(0, int(POOL_CLIP_S * sr), sr):
+        for sid, x in streams.items():
+            pooled.push(sid, x[start: start + sr])
+        chunks += pooled.poll()
+    for sid in streams:
+        pooled.flush(sid)
+    chunks += pooled.poll()
+    decoder = streaming.DecoderPool(proc, win_duration=WINDOW_S, max_batch=POOL_STREAMS)
+    decoded = []
+    for i in range(0, len(pool["chunks"]), POOL_STREAMS):
+        for sid, c, n in pool["chunks"][i: i + POOL_STREAMS]:
+            decoder.push(sid, c, n)
+        decoded += decoder.poll()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    pool_s = time.perf_counter() - t0
+    devices_launches = dict(build.LAUNCHES)
+    assert devices_launches.get("rvq", 0) > 0 and devices_launches.get("snake", 0) > 0
+    # the one-card pool's chunks decoded over the cards, against its audio
+    assert [sid for sid, _ in decoded] == [sid for sid, _ in pool["audio"]]
+    if cards == 1:
+        assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(decoded, pool["audio"]))
+    decode_db = min(si_sdr(np.concatenate([a for s, a in decoded if s == sid])[None],
+                           np.concatenate([a for s, a in pool["audio"] if s == sid])[None])
+                    for sid in streams)
+    assert decode_db >= MIN_POOL_DECODE_DB, decode_db
+    codes = np.concatenate([c for sid in streams for s, c, _ in chunks if s == sid], -1)
+    want = np.concatenate([c for sid in streams for s, c, _ in pool["chunks"]
+                           if s == sid], -1)
+    near = np.concatenate([m for sid in streams for m in pool["margins"][sid]]) <= TIE_MARGIN
+    split = flips(codes[None], want[None], near[None])
+    assert split["flipped_off_tie"] == 0, split
+    if cards == 1:  # the one-card pool's very computation
+        assert split["flipped_frames"] == 0, split
+    last = last_card_checks(model, gen, devices[-1], cards) if cards >= 2 else None
+    del model, proc
+    torch.cuda.empty_cache()
+
+    one_ms = float(np.median(plain["step_ms"]))
+    remat_ms = float(np.median(remat["step_ms"]))
+    out = {"cards": cards, "config": FLAGSHIP_YAML, "batch": TRAIN_BATCH,
+           "duration_s": TRAIN_DURATION_S,
+           "one_rank": {"step_ms": plain["step_ms"], "clips_per_s": TRAIN_BATCH / one_ms * 1e3,
+                        "peak_memory_gib": plain["peak_memory_gib"],
+                        "launches_step1": plain["launches"]},
+           "a_gloo_one_card": {**gloo, "note": "two gloo ranks share one card: "
+                               "not a scaling number"},
+           "b_nccl_one_rank_cli": {"world": nccl1["world"], "backend": nccl1["backend"],
+                                   "steps": nccl1["steps"], "step_ms": nccl1["step_ms"],
+                                   "metrics": nccl1["metrics"], "cli_s": cli_s,
+                                   "saved": True},
+           "b_nccl_two_cards": (
+               {**nccl2, "clips_per_s": {
+                   "1_card": TRAIN_BATCH / one_ms * 1e3,
+                   "2_cards": TRAIN_BATCH / float(np.median(nccl2["step_ms"][0])) * 1e3}}
+               if nccl2 else "not run: one card"),
+           "b_cli_spawn_every_card": spawned or "not run: one card",
+           "one_rank_twice": spread,
+           "c_remat": {**remat_agree,
+                       "peak_memory_gib": {"plain": plain["peak_memory_gib"],
+                                           "remat": remat["peak_memory_gib"]},
+                       "step_ms": {"plain": plain["step_ms"], "remat": remat["step_ms"]},
+                       "step_time_ratio": remat_ms / one_ms,
+                       "k2_launches_step1": {"plain": plain["launches"],
+                                             "remat": remat["launches"]}},
+           "d_pool_over_cards": {"devices": [str(d) for d in devices],
+                                 "streams": POOL_STREAMS, "clip_s": POOL_CLIP_S,
+                                 "windows": len(chunks), **split,
+                                 "decode_min_si_sdr_db": decode_db,
+                                 "launches": devices_launches, "encode_decode_s": pool_s,
+                                 "last_card": last or "not run: one card"}}
+    rank_launches = collections.Counter()
+    for group in (gloo, nccl2 or {"launches_step1": []}):
+        for launches in group["launches_step1"]:
+            rank_launches.update(launches)
+    rank_fwd_row, rank_bwd_row = census_row(rank_fwd, rank_census), census_row(
+        rank_bwd, rank_census)
+    rank_bwd_row.update(dx_rel_err=max(c["dx_rel_err"] for c in rank_bwd),
+                        dalpha_rel_err=max(c["dalpha_rel_err"] for c in rank_bwd))
+    out["ranks_snake"] = {"forward": rank_fwd_row, "backward": rank_bwd_row,
+                          "launches": dict(rank_launches)}
+    phase("parallel", **out)
+    return {"train": dict(path_launches), "pool": devices_launches,
+            "ranks_forward": {**rank_fwd_row, "launches": rank_launches["snake"]},
+            "ranks_backward": {**rank_bwd_row,
+                               "launches": rank_launches["snake_backward"]},
+            "ranks_shapes": len(rank_census)}
+
+
+def last_card_checks(model, gen, last, cards: int):
+    """K2 (each mode, and the exact backward) and K1 on tensors of the last
+    card while the current card is the first, against their plain versions
+    there, at the rows of a card's block of a pool batch."""
+    torch.cuda.set_device(0)
+    rows = POOL_STREAMS // cards if POOL_STREAMS % cards == 0 else POOL_STREAMS
+    out = {"device": str(last), "rows": rows}
+    shape = (rows, 96, 22050)
+    with torch.inference_mode():
+        for mode in SNAKE_MODES:
+            dtype = torch.bfloat16 if mode.endswith("_bf16") else torch.float32
+            x, alpha = (t.to(last) for t in kt.snake_inputs(shape, gen, dtype))
+            c = kt.time_snake(snake_ops, x, alpha, approx="approx" in mode, timed=False)
+            tol = SNAKE_BF16_TOL if dtype == torch.bfloat16 else SNAKE_TOL
+            assert c["max_abs_err"] <= tol, (mode, c)
+            out[mode] = c["max_abs_err"]
+        x, alpha = (t.to(last) for t in kt.snake_inputs(shape, gen))
+        g = torch.randn(shape, generator=gen).to(last)
+        dx, dalpha = snake_ops.snake_backward(x, alpha, g)
+        rdx, rdalpha = snake_ops.snake_backward_reference(x, alpha, g)
+        out["snake_backward_dx_rel_err"] = float((dx - rdx).abs().max() / rdx.abs().max())
+        out["snake_backward_dalpha_rel_err"] = float(
+            (dalpha - rdalpha).abs().max() / rdalpha.abs().max())
+        assert out["snake_backward_dx_rel_err"] <= SNAKE_BWD_DX_TOL, out
+        assert out["snake_backward_dalpha_rel_err"] <= SNAKE_BWD_DALPHA_TOL, out
+        weights = rvq_ops.RVQWeights(*(w.to(last) for w in
+                                             rvq_ops.stack_quantizer_weights(model.quantizer)))
+        z, mask = (t.to(last) for t in kt.rvq_inputs(rows * 72, 8, 1024, gen))
+        c = kt.rvq_compare(rvq_ops, z, weights, rvq_ops.prepare_rvq(weights), mask)
+        assert c["flipped_off_tie"] == 0 and c["max_abs_err"] <= ZQ_ATOL, c
+        out["fused_rvq"] = c
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0
+    return out
+
+
 def kernel_row(name, mode_row, **fields):
     return {"name": name, "route": "cuda", "library_ms": None,
             "bound_by": "bytes", **fields,
@@ -1289,8 +1721,8 @@ def main() -> int:
     launches, census, serve_dac = serve_phase(model)
     snake_clip = agree_phase(model, census, gen)
     snake_modes, mode_errors = fast_phase(model, serve_dac, census, gen)
-    pool_launches, chunks, pool_snake = pool_phase(model, gen)
-    entropy_phase(model, serve_dac, chunks)
+    pool_launches, pool, pool_snake = pool_phase(model, gen)
+    entropy_phase(model, serve_dac, pool["chunks"])
     reference_phase(model)
     del model
     torch.cuda.empty_cache()
@@ -1299,6 +1731,8 @@ def main() -> int:
     train_rows = train_phase(gen)
     torch.cuda.empty_cache()
     cli_rows = cli_phase(gen)
+    torch.cuda.empty_cache()
+    par = parallel_phase(gen, pool)
 
     source = {"source": "vrvq_tpu_torch/kernels/csrc/snake.cu",
               "replaces": "vrvq_tpu/ops/snake.py:33"}
@@ -1375,6 +1809,44 @@ def main() -> int:
                    per=f"{B64_YAML} step (4 x 16 x 0.38 s): {per['backward']} "
                        f"launches a step over "
                        f"{cli_rows['snake_approx_backward']['shapes']} shapes"),
+    ]
+    kernels += [
+        kernel_row("snake_parallel", {**train_rows["snake_train"],
+                                      "launches": par["train"]["snake"]}, **source,
+                   per="exact float32 forward, the parallel phase's one-rank and "
+                       "remat steps at batch 16 x 0.38 s (the train step's census, "
+                       "the same shapes; remat recomputes the generator's forward)"),
+        kernel_row("snake_backward_parallel", {**train_rows["snake_backward"],
+                                               "launches": par["train"]["snake_backward"]},
+                   source="vrvq_tpu_torch/kernels/csrc/snake.cu",
+                   replaces="vrvq_tpu/ops/snake.py:19 (no Pallas backward: "
+                            "XLA's autodiff of snake_reference)",
+                   per="the parallel phase's one-rank and remat steps (the train "
+                       "step's census)"),
+        kernel_row("snake_ranks", par["ranks_forward"], **source,
+                   per=f"exact float32 forward, the parallel phase's ranks' step 1 "
+                       f"at 8 rows of the batch of 16 x 0.38 s, over a rank's census "
+                       f"of {par['ranks_shapes']} shapes"),
+        kernel_row("snake_backward_ranks", par["ranks_backward"],
+                   source="vrvq_tpu_torch/kernels/csrc/snake.cu",
+                   replaces="vrvq_tpu/ops/snake.py:19 (no Pallas backward: "
+                            "XLA's autodiff of snake_reference)",
+                   per=f"the parallel phase's ranks' step 1 at 8 rows, over a "
+                       f"rank's census of {par['ranks_shapes']} shapes"),
+        kernel_row("snake_pool_cards", {**pool_snake["snake"],
+                                        "launches": par["pool"]["snake"]}, **source,
+                   per="8 streams x 10 s through StreamPool and DecoderPool over "
+                       "every card (times: the pool's census on one card, the "
+                       "same computation; with several cards each card's block "
+                       "is checked on the last card)"),
+        {"name": "fused_rvq_pool_cards", "route": "cuda", **rvq_source,
+         "launches": par["pool"]["rvq"], "max_abs_err": rvq_err,
+         "ms": rvq_pool["ms"], "plain_ms": rvq_pool["plain_ms"],
+         "bound_ms": rvq_pool["bound_ms"], "bound_by": rvq_pool["bound_by"],
+         "library_ms": None,
+         "per": "8 streams x 10 s through StreamPool over every card (times: a "
+                "pool batch of 576 frames on one card; with several cards each "
+                "card's block is checked on the last card)"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

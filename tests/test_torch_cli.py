@@ -36,6 +36,7 @@ from vrvq_tpu_torch.config import Config
 from vrvq_tpu_torch.convert import state_dict_from_jax
 from vrvq_tpu_torch.data import loaders as tloaders
 from vrvq_tpu_torch.data import transforms as ttransforms
+from vrvq_tpu_torch.parallel import dist as pdist
 from vrvq_tpu_torch.train import checkpoint as ckpt
 from vrvq_tpu_torch.train import trainer
 from tests.test_torch_support import JAX_CFG, jitter
@@ -152,16 +153,38 @@ def test_cli_inference_writes_the_sweep(tiny, runs):
 
 
 def test_unported_config_keys_raise_with_their_names(tiny, tmp_path):
-    """Repair (a): each of these keys used to be ignored without a word."""
-    for extra, name in ((["--remat", "true"], "remat"),
-                        (["--DAC_VRVQ.encoder_packed", "true"], "DAC_VRVQ.encoder_packed"),
+    """Repair (a): each of these keys used to be ignored without a word.
+    (``remat`` and the multi-host flags are ported: see the next test.)"""
+    for extra, name in ((["--DAC_VRVQ.encoder_packed", "true"], "DAC_VRVQ.encoder_packed"),
                         (["--Discriminator.channels", "32"], "Discriminator.channels"),
                         (["--zero", "true"], "zero")):
         with pytest.raises(NotImplementedError, match=name):
             cli_train.main(_argv(tiny, tmp_path / name, *extra))
         assert not (tmp_path / name).exists()
-    with pytest.raises(NotImplementedError, match="process_id"):
-        cli_train.main(_argv(tiny, tmp_path / "m", "--process_id", "0"))
+
+
+def test_remat_trains_and_multi_host_flags_reach_init_distributed(tiny, tmp_path,
+                                                                  monkeypatch):
+    """``--remat true`` trains; JAX's multi-host flags reach
+    ``init_distributed`` as they are (one host of one CPU process: a gloo
+    group of 1), and the run reports the group."""
+    seen = []
+    real = pdist.init_distributed
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pdist, "init_distributed", spy)
+    coordinator = f"localhost:{pdist.free_port()}"
+    out = cli_train.main(_argv(tiny, tmp_path / "r", "--num_iters", "1", "--remat", "true",
+                               "--coordinator", coordinator, "--num_processes", "1",
+                               "--process_id", "0"))
+    assert seen == [dict(device=torch.device("cpu"), coordinator=coordinator,
+                         num_processes=1, process_id=0)]
+    assert (out["world"], out["backend"], out["steps"]) == (1, "gloo", 1)
+    assert all(np.isfinite(v) for v in out["metrics"][0].values())
+    assert not pdist.dist.is_initialized()
 
 
 def test_grad_accum_steps_is_honoured(tiny, tmp_path):
@@ -245,3 +268,19 @@ def test_volume_norm_matches_jax(tiny, db, monkeypatch):
     got = tds.transform(torch.from_numpy(tbatch["signal"].audio_data),
                         **tbatch["transform_args"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_trainer_load_turns_tf32_off(tiny, tmp_path):
+    """A rank that builds its state with ``trainer.load`` alone (no
+    ``train()``) trains in float32: TF32 (PyTorch's default for cuDNN) is
+    turned off by ``load`` itself."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        trainer.load(Config.load(tiny / "tiny.yml"), trainer.Tracker(), tmp_path,
+                     device="cpu")
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -523,3 +523,109 @@ def test_fused_quantizer_raises_on_mixed_widths_on_the_card(cuda):
     sig = port.Signal(port.synthetic_clip(1.0, 44100, 2), 44100)
     dac = port.CodecProcessor(model).compress(sig, win_duration=0.5, level=1.0)
     assert dac.codes.shape[1] == 4 and dac.vbr_counts is not None
+
+
+# ------------------------------------------------------- several cards
+def test_kernels_launch_on_the_last_card(cuda):
+    """K2 (forward and backward, every mode) and K1 on a tensor of the last
+    visible card, while the current card is the first: each launch goes to
+    its tensor's card (K1 raises its shared-memory limit there too) and
+    agrees with its plain version. Skips below 2 cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    last = torch.device("cuda", n - 1)
+    torch.cuda.set_device(0)
+    gen = torch.Generator().manual_seed(5)
+    for dtype, approx in MODES.values():
+        x = torch.randn((2, 64, 1031), generator=gen).to(last, dtype)
+        alpha = (torch.rand(64, generator=gen) + 0.5).to(last)
+        with torch.inference_mode():
+            _assert_snake_matches_plain(x, alpha, approx)
+    x = torch.randn((2, 64, 1031), generator=gen).to(last)
+    alpha = (torch.rand(64, generator=gen) + 0.5).to(last)
+    g = torch.randn((2, 64, 1031), generator=gen).to(last)
+    dx, dalpha = snake.snake_backward(x, alpha, g)
+    rx, ralpha = snake.snake_backward_reference(x, alpha, g)
+    assert torch.equal(dx, rx)
+    torch.testing.assert_close(dalpha, ralpha, rtol=1e-4, atol=1e-4 * ralpha.abs().max())
+    model = port.build_model(port.FLAGSHIP, device=last, seed=0)
+    z = torch.randn((1, 1024, 72), generator=gen).to(last)
+    with torch.inference_mode():
+        rvq = rvq_kernel.prepare_rvq(rvq_kernel.stack_quantizer_weights(model.quantizer))
+        _, codes = rvq_kernel.quantize_fused(rvq, z)
+        frames = z.transpose(1, 2).reshape(-1, 1024)
+        _, ref = rvq_kernel.fused_rvq_reference(frames, *rvq.weights)
+        near_tie = rvq_kernel.reference_margins(frames, *rvq.weights) <= 1e-5
+    torch.cuda.synchronize(last)
+    assert codes.device == last and torch.cuda.current_device() == 0
+    assert not ((codes[0].T != ref).any(dim=1) & ~near_tie).any()
+
+
+def test_codec_processor_on_card_0_equals_the_default(cuda):
+    model = port.build_model(port.FLAGSHIP, device=cuda, seed=0)
+    sig = port.Signal(port.synthetic_clip(2.5, 44100, 9), 44100)
+    default = port.CodecProcessor(model, fused_quantizer=True)
+    listed = port.CodecProcessor(model, fused_quantizer=True,
+                                 devices=[torch.device("cuda", 0)])
+    assert listed.replicas[0][0] is model
+    a = default.compress(sig, win_duration=1.0, level=1.0)
+    b = listed.compress(sig, win_duration=1.0, level=1.0)
+    assert np.array_equal(a.codes, b.codes) and np.array_equal(a.vbr_counts, b.vbr_counts)
+    assert np.array_equal(default.decompress(a).audio_data,
+                          listed.decompress(b).audio_data)
+
+
+def test_remat_step_on_the_card_equals_the_plain_step(cuda):
+    """One step of a small codec (MPD 2, one MRD of 512) with ``remat``
+    against the same step without, same parameters, batch and draws, on the
+    card: losses within 1e-5 relative, the gradients the update took and
+    the parameters within 1e-4 relative L2, each over both networks as one
+    vector (two runs of one step on the card differ by cuDNN's order of
+    sums, which moves a gradient of small norm, and Adam's first step is
+    about lr x sign(g): a small tensor is not held alone); K2's forward runs
+    again in the recompute."""
+    from vrvq_tpu_torch.losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
+    from vrvq_tpu_torch.models.discriminator import Discriminator
+    from vrvq_tpu_torch.train import loop
+    from vrvq_tpu_torch.train.state import TrainState, make_optimizer
+
+    config = port.small_config(quantizer_dropout=0.25, full_codebook_rate=0.25,
+                               level_min=0.125, level_max=6.0)
+    draw = torch.Generator().manual_seed(0)
+    gen_sd = port.init_params(port.DAC_VRVQ(config), draw).state_dict()
+    disc_sd = port.init_params(Discriminator(periods=(2,), fft_sizes=(512,)),
+                               draw).state_dict()
+    audio = torch.from_numpy(np.concatenate(
+        [port.synthetic_clip(0.2, 44100, s) for s in range(4)])).to(cuda)
+
+    def step(remat):
+        gen = port.DAC_VRVQ(config)
+        gen.load_state_dict(gen_sd)
+        disc = Discriminator(periods=(2,), fft_sizes=(512,))
+        disc.load_state_dict(disc_sd)
+        gen, disc = gen.to(cuda), disc.to(cuda)
+        state = TrainState(gen, disc, make_optimizer(gen.parameters(), max_grad_norm=1e3),
+                           make_optimizer(disc.parameters(), max_grad_norm=10.0))
+        train_step = loop.make_train_step(
+            {"mel/loss": 15.0, "adv/feat_loss": 2.0, "adv/gen_loss": 1.0,
+             "vq/commitment_loss": 0.25, "vq/codebook_loss": 1.0, "vq/rate_loss": 2.0},
+            MultiScaleSTFTLoss(window_lengths=(512,)),
+            MelSpectrogramLoss(n_mels=(40,), window_lengths=(512,), mel_fmin=(0,),
+                               mel_fmax=(None,)), L1Loss(), remat=remat)
+        draws = gen.draws(4, torch.Generator(device=cuda).manual_seed(1), cuda)
+        LAUNCHES.clear()
+        metrics = train_step(state, audio, **draws)
+        torch.cuda.synchronize()
+        nets = (gen, disc)
+        return ({k: v.item() for k, v in metrics.items()}, dict(LAUNCHES),
+                torch.cat([p.detach().reshape(-1) for m in nets for p in m.parameters()]),
+                torch.cat([p.grad.reshape(-1) for m in nets for p in m.parameters()]))
+
+    m0, l0, p0, g0 = step(False)
+    m1, l1, p1, g1 = step(True)
+    for key, value in m0.items():
+        assert abs(m1[key] - value) <= 1e-5 * max(abs(value), 1e-30), key
+    assert float((g1 - g0).norm() / g0.norm()) <= 1e-4
+    assert float((p1 - p0).norm() / p0.norm()) <= 1e-4
+    assert l1["snake"] > l0["snake"] > 0 and l1["snake_backward"] == l0["snake_backward"]

@@ -29,19 +29,32 @@ the model's parameters as they are then. As in the JAX version it takes a
 ``DAC_VRVQ`` only, and one codebook width for every stage.
 
 PyTorch runs eagerly, so the JAX version's jitted programs are plain calls
-here; there is one card, so no mesh. As in the JAX version, the windowed
-paths dispatch every window before they fetch any result: the signal goes to
-the device in one copy (``put_batch``), each window's work is queued on the
-card, and the results come back in one copy at the end, so the host never
-waits for the card between windows. Everything runs under
-``torch.inference_mode()``, with TF32 off.
+here. As in the JAX version, the windowed paths dispatch every window before
+they fetch any result: the signal goes to the device in one copy
+(``put_batch``), each window's work is queued on the card, and the results
+come back in one copy at the end, so the host never waits for the card
+between windows. Everything runs under ``torch.inference_mode()``, with TF32
+off.
+
+Over several cards (``devices``, the JAX version's ``mesh``) the processor
+keeps a replica of the model on each and, with the fused quantizer, each
+replica's prepared weights. The replicas are copies of the parameters as
+they were when the processor was made, the first card's too, so every block
+of a batch is coded by the same weights: a processor over several cards does
+not follow later changes to ``model`` (make a new one). On one card it uses
+``model`` itself. ``put_batch`` splits a batch whose rows divide the card
+count into equal row blocks, one a card (``Rows``); each block runs on its
+card's replica, one after another from this thread, and the results are
+gathered on the first card in row order. A batch that does not divide runs
+whole on the first card (the JAX version's replicated fallback): the same
+codes either way.
 """
 
 from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Optional, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -67,11 +80,31 @@ def check_counts_hold_mask(model, vbr: bool) -> None:
             "model.decode_from_codes(codes, mask), or at n_quantizers (CBR)")
 
 
+class Rows:
+    """A batch on the processor's cards: its row blocks in row order, block
+    i on card i (one block, on the first card, where the batch does not
+    divide the card count)."""
+
+    def __init__(self, blocks: Sequence[torch.Tensor]):
+        self.blocks = list(blocks)
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Rows":
+        """``fn`` applied to every block."""
+        return Rows([fn(b) for b in self.blocks])
+
+    def __getitem__(self, index) -> "Rows":
+        """An index of the axes after the rows, applied to every block."""
+        return self.map(lambda b: b[(slice(None), *index)]
+                        if isinstance(index, tuple) else b[:, index])
+
+
 class CodecProcessor:
     """Host-side orchestrator of the padded and padding-free codecs, which
-    share ``model``'s parameters and device."""
+    share ``model``'s parameters and device; over ``devices`` (several
+    cards) with a replica on each."""
 
-    def __init__(self, model, fused_quantizer: bool = False):
+    def __init__(self, model, fused_quantizer: bool = False,
+                 devices: Optional[Sequence] = None):
         if fused_quantizer:
             if isinstance(model, DAC_MOE):
                 raise ValueError(
@@ -81,8 +114,30 @@ class CodecProcessor:
         disable_tf32()
         self.model = model.eval()
         self.model_nopad = model.clone(padding=False).eval()
-        self.device = next(model.parameters()).device
+        here = next(model.parameters()).device
+        self.devices = ([here] if devices is None
+                        else [torch.device(d) for d in devices])
+        if not self.devices:
+            raise ValueError("devices: at least one")
+        self.device = self.devices[0]
         self.fused_quantizer = fused_quantizer
+        # (padded, padding-free) codec on each card, sharing that card's
+        # parameters: `model` itself on its own card alone, else copies
+        if self.devices == [here]:
+            self.replicas = [(self.model, self.model_nopad)]
+        else:
+            self.replicas = [self._replica(d) for d in self.devices]
+
+    def _replica(self, device: torch.device):
+        with torch.no_grad():
+            model = self.model.with_state(
+                {k: v.to(device, copy=True)
+                 for k, v in self.model.state_dict().items()}).eval()
+        return model, model.clone(padding=False).eval()
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
 
     # ------------------------------------------------------------ encode
     def _encode(self, variant, audio: torch.Tensor,
@@ -116,16 +171,61 @@ class CodecProcessor:
             generate_mask_hard(imp_map * level * n_q, n_q), dim=1
         ).to(torch.uint8)
 
-    def prepared_rvq(self):
-        """The quantizer's weights prepared for the fused kernel, from the
-        parameters as they are now; ``None`` without ``fused_quantizer``."""
+    def prepared_rvq(self) -> Optional[List]:
+        """Each replica's quantizer weights prepared for the fused kernel,
+        from the parameters as they are now (one a card); ``None`` without
+        ``fused_quantizer``."""
         if not self.fused_quantizer:
             return None
-        return prepare_rvq(stack_quantizer_weights(self.model.quantizer))
+        return [prepare_rvq(stack_quantizer_weights(m.quantizer))
+                for m, _ in self.replicas]
 
-    def put_batch(self, x: np.ndarray) -> torch.Tensor:
-        """A host batch on the model's device, in one copy."""
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+    def put_batches(self, x: np.ndarray, sizes: Sequence[int]) -> List[Rows]:
+        """The batches stacked in host array ``x`` (``sizes`` rows each) on
+        the cards, in one copy a card: where every size divides the card
+        count, card i gets the i-th row block of every batch; else each
+        batch lies whole on the first card."""
+        x = np.ascontiguousarray(x)
+        n = self.n_devices
+        starts = np.cumsum([0, *sizes])
+        if n == 1 or any(size % n for size in sizes):
+            whole = torch.from_numpy(x).to(self.device)
+            return [Rows([whole[a:b]]) for a, b in zip(starts[:-1], starts[1:])]
+        # card i's rows: the i-th block of each batch, side by side
+        order = [np.arange(a + i * (size // n), a + (i + 1) * (size // n))
+                 for i in range(n) for a, size in zip(starts[:-1], sizes)]
+        parts = np.split(x[np.concatenate(order)], n)
+        on_cards = [torch.from_numpy(part).to(d) for part, d in zip(parts, self.devices)]
+        return [Rows([t[a // n:b // n] for t in on_cards])
+                for a, b in zip(starts[:-1], starts[1:])]
+
+    def put_batch(self, x: np.ndarray) -> Rows:
+        """A host batch on the cards (``put_batches`` of one batch)."""
+        return self.put_batches(x, [len(x)])[0]
+
+    def gather(self, blocks: Sequence[Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
+        """Per-card results in row order, on the first card."""
+        if blocks[0] is None:
+            return None
+        if len(blocks) == 1:
+            return blocks[0]
+        return torch.cat([b.to(self.device) for b in blocks])
+
+    def encode_rows(self, padding: bool, rows: Rows, n_quantizers: Optional[int],
+                    level: float, rvq: Optional[List] = None):
+        """``_encode`` of each block on its card's replica (padded or
+        padding-free; ``rvq`` from ``prepared_rvq``), gathered: (codes,
+        counts) on the first card."""
+        out = [self._encode(self.replicas[i][0 if padding else 1], block,
+                            n_quantizers, level, None if rvq is None else rvq[i])
+               for i, block in enumerate(rows.blocks)]
+        return self.gather([c for c, _ in out]), self.gather([n for _, n in out])
+
+    def decode_rows(self, padding: bool, codes: Rows, mask: Rows) -> torch.Tensor:
+        """``decode_from_codes`` of each block on its card's replica,
+        gathered on the first card."""
+        return self.gather([self.replicas[i][0 if padding else 1].decode_from_codes(c, m)
+                            for i, (c, m) in enumerate(zip(codes.blocks, mask.blocks))])
 
     # ---------------------------------------------------------- geometry
     def window_geometry(self, win_duration: float):
@@ -210,8 +310,8 @@ class CodecProcessor:
             padding = True
             right_pad = math.ceil(nt / model.hop_length) * model.hop_length - nt
             x = np.pad(data, ((0, 0), (0, 0), (0, right_pad)))
-            codes, counts = self._encode(model, self.put_batch(x),
-                                         n_quantizers, lv, rvq)
+            codes, counts = self.encode_rows(True, self.put_batch(x),
+                                             n_quantizers, lv, rvq)
             codes_list, counts_list = [codes], [counts]
         else:
             # padding-free codec on windows, the ends padded by the delay and
@@ -225,9 +325,8 @@ class CodecProcessor:
                 data, ((0, 0), (0, 0), (delay, delay + max(tail, 0)))))
             codes_list, counts_list = [], []
             for i in starts:
-                codes_i, counts_i = self._encode(
-                    self.model_nopad, data[..., i: i + n_samples],
-                    n_quantizers, lv, rvq)
+                codes_i, counts_i = self.encode_rows(
+                    False, data[..., i: i + n_samples], n_quantizers, lv, rvq)
                 codes_list.append(codes_i)
                 counts_list.append(counts_i)
         chunk_length = codes_list[0].shape[-1]
@@ -259,7 +358,6 @@ class CodecProcessor:
 
         codes = np.asarray(obj.codes, np.int32)
         chunk_length = obj.chunk_length
-        variant = self.model if obj.padding else self.model_nopad
 
         # the codes and the stage mask of every chunk, the last one padded to
         # a whole chunk, in one copy each; every chunk queued on the device
@@ -273,10 +371,11 @@ class CodecProcessor:
             mask = (stage < counts[:, None, :]).astype(np.float32)
         else:
             mask = np.ones(codes.shape, np.float32)
-        codes, mask = self.put_batch(codes).long(), self.put_batch(mask)
+        codes = self.put_batch(codes).map(torch.Tensor.long)
+        mask = self.put_batch(mask)
         parts = [
-            variant.decode_from_codes(codes[..., i: i + chunk_length],
-                                      mask[..., i: i + chunk_length])
+            self.decode_rows(obj.padding, codes[..., i: i + chunk_length],
+                             mask[..., i: i + chunk_length])
             for i in range(0, frames, chunk_length)
         ]
         audio = torch.cat(parts, dim=-1).cpu().numpy()

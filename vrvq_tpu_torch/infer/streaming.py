@@ -21,9 +21,10 @@ length) as state:
     with adaptive models that persist across packets.
 
 A ``DAC_MOE`` streams in CBR only: its VBR mask is no prefix of the stages
-(``infer/codec_api.py``). There is one card, so no mesh. Algorithmic
-latency: the first chunk appears after ``window - delay`` real samples; each
-chunk covers ``hop`` samples.
+(``infer/codec_api.py``). Over a processor of several cards the pools pad
+each batch up to a multiple of the card count, so that every card takes an
+equal row block of it. Algorithmic latency: the first chunk appears after
+``window - delay`` real samples; each chunk covers ``hop`` samples.
 """
 
 from __future__ import annotations
@@ -39,10 +40,12 @@ from ..ops.rangecoder import AdaptiveCoder
 from .codec_api import CodecProcessor, check_counts_hold_mask
 
 
-def _padded_batch(b: int) -> int:
-    """A pool batch padded to the next power of two: at most
-    log2(max_batch) + 1 batch shapes ever reach the convs."""
-    return 1 << (b - 1).bit_length()
+def _padded_batch(b: int, n_devices: int = 1) -> int:
+    """A pool batch padded to the next power of two (at most log2(max_batch)
+    + 1 batch shapes ever reach the convs), then up to a multiple of the
+    card count, so the batch splits evenly over the cards."""
+    bp = max(1 << (b - 1).bit_length(), n_devices)
+    return bp + (-bp) % n_devices
 
 
 def _stage_mask(counts: Optional[np.ndarray], n_q: int, frames: int) -> np.ndarray:
@@ -134,8 +137,8 @@ class StreamingEncoder:
 
     def _encode_window(self, x: np.ndarray):
         with torch.inference_mode():
-            codes, counts = self.proc._encode(
-                self.proc.model_nopad, self.proc.put_batch(x[None, None, :]),
+            codes, counts = self.proc.encode_rows(
+                False, self.proc.put_batch(x[None, None, :]),
                 self.n_quantizers, self.level, self._rvq)
             codes = codes[0].cpu().numpy()
             counts = counts[0].cpu().numpy() if self.vbr else None
@@ -202,7 +205,7 @@ class StreamPool:
             return []
         batches = [pending[i: i + self.max_batch]
                    for i in range(0, len(pending), self.max_batch)]
-        sizes = [_padded_batch(len(take)) for take in batches]
+        sizes = [_padded_batch(len(take), self.proc.n_devices) for take in batches]
         xs = np.zeros((sum(sizes), 1, self.window), np.float32)
         rows = []  # the row of each pending window in xs
         for take, r0 in zip(batches, np.cumsum([0] + sizes[:-1])):
@@ -211,14 +214,11 @@ class StreamPool:
                 rows.append(r0 + j)
         codes, counts = [], []
         with torch.inference_mode():
-            x = self.proc.put_batch(xs)
-            r0 = 0
-            for bp in sizes:
-                c, n = self.proc._encode(self.proc.model_nopad, x[r0: r0 + bp],
-                                         self.n_quantizers, self.level, self._rvq)
+            for x in self.proc.put_batches(xs, sizes):
+                c, n = self.proc.encode_rows(False, x, self.n_quantizers,
+                                             self.level, self._rvq)
                 codes.append(c)
                 counts.append(n)
-                r0 += bp
             codes = torch.cat(codes).cpu().numpy()
             counts = torch.cat(counts).cpu().numpy() if self.vbr else None
         return [(sid, codes[r], counts[r] if self.vbr else None)
@@ -255,7 +255,7 @@ class DecoderPool:
             return []
         batches = [pending[i: i + self.max_batch]
                    for i in range(0, len(pending), self.max_batch)]
-        sizes = [_padded_batch(len(take)) for take in batches]
+        sizes = [_padded_batch(len(take), self.proc.n_devices) for take in batches]
         nq, cf = pending[0][1].shape[0], self.chunk_frames
         codes = np.zeros((sum(sizes), nq, cf), np.int32)
         mask = np.zeros((sum(sizes), nq, cf), np.float32)
@@ -266,13 +266,9 @@ class DecoderPool:
                 mask[r0 + j] = _stage_mask(cnt, nq, cf)
                 rows.append(r0 + j)
         with torch.inference_mode():
-            c_dev = self.proc.put_batch(codes).long()
-            m_dev = self.proc.put_batch(mask)
-            parts, r0 = [], 0
-            for bp in sizes:
-                parts.append(self.proc.model_nopad.decode_from_codes(
-                    c_dev[r0: r0 + bp], m_dev[r0: r0 + bp]))
-                r0 += bp
+            parts = [self.proc.decode_rows(False, c.map(torch.Tensor.long), m)
+                     for c, m in zip(self.proc.put_batches(codes, sizes),
+                                     self.proc.put_batches(mask, sizes))]
             audio = torch.cat(parts).cpu().numpy()
         return [(sid, audio[r, 0]) for (sid, _, _), r in zip(pending, rows)]
 
@@ -295,9 +291,9 @@ class StreamingDecoder:
     def _decode_chunk(self, c: np.ndarray, counts: Optional[np.ndarray]) -> np.ndarray:
         mask = _stage_mask(counts, c.shape[0], c.shape[-1])
         with torch.inference_mode():
-            r = self.proc.model_nopad.decode_from_codes(
-                self.proc.put_batch(c[None].astype(np.int32)).long(),
-                self.proc.put_batch(mask[None]))
+            r = self.proc.decode_rows(
+                False, self.proc.put_batch(c[None].astype(np.int32)).map(
+                    torch.Tensor.long), self.proc.put_batch(mask[None]))
             return r[0, 0].cpu().numpy()
 
     def push(self, codes: np.ndarray,

@@ -95,6 +95,7 @@ constexpr int kLanes = 32;       // threads that share one frame: a warp
 constexpr int TF = 4;
 constexpr int kMaxCluster = 8;   // portable cluster sizes
 constexpr int kRing = 2;         // stages of weights in shared memory
+constexpr int kMaxDevices = 64;  // cards whose shared-memory limit is kept
 // mbarriers: the ring's, then the two exchanges' (partial e, candidates)
 constexpr int kBarrierBytes = 16 * (((kRing + 2) * 8 + 15) / 16);
 constexpr unsigned kFull = 0xffffffffu;
@@ -465,14 +466,18 @@ cudaError_t launch(const float* z, const float* packed, const float* mask,
                    float* zq, int32_t* codes, int F, int D, int Dp, int NQ,
                    int Kp, int cs, cudaStream_t stream) {
   const size_t bytes = smem_bytes(cs, Dp / cs, Kp / cs, DC, NQ);
-  // raised once per size, not per launch (a CUDA graph can then capture it)
-  static size_t configured = 0;
-  if (bytes > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rvq_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+  // raised once per size and card (the attribute is the current card's),
+  // not per launch (a CUDA graph can then capture it)
+  static size_t configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || bytes > configured[dev]) {
+    err = cudaFuncSetAttribute(rvq_kernel<DC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
     if (err != cudaSuccess) return err;
-    configured = bytes;
+    if (dev < kMaxDevices) configured[dev] = bytes;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(((F + TF - 1) / TF) * cs));
@@ -486,8 +491,8 @@ cudaError_t launch(const float* z, const float* packed, const float* mask,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, rvq_kernel<DC>, z, packed,
-                                       mask, zq, codes, F, D, Dp, NQ, Kp);
+  err = cudaLaunchKernelEx(&cfg, rvq_kernel<DC>, z, packed, mask, zq, codes,
+                           F, D, Dp, NQ, Kp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

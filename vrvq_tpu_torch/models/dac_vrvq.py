@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -304,20 +304,24 @@ class DAC_VRVQ(nn.Module):
                 level: Optional[float] = 1.0, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 levels: Optional[torch.Tensor] = None,
-                depths: Optional[Sequence[int]] = None) -> dict:
+                depths: Optional[Sequence[int]] = None,
+                rows: Optional[Tuple[int, int]] = None) -> dict:
         """preprocess -> encode -> decode, trimmed to the input length.
 
         ``train=True`` is the training forward (the quantizer's random
         draws from ``generator``, or ``levels``/``depths`` pinned) and adds
         ``vq/commitment_loss`` and ``vq/codebook_loss``; ``imp_map`` then
-        holds the importance-masked rows only (None in CBR)."""
+        holds the importance-masked rows only (None in CBR). ``rows =
+        (offset, total)``: the audio is those rows of a train batch of
+        ``total``, whose draws and partition the quantizer keeps its part of
+        (data parallelism)."""
         length = audio_data.shape[-1]
         audio_data = self.preprocess(audio_data, sample_rate)
         z, feat = self.encoder(audio_data, return_feat=True)
         train_kw = {}
         if train:
             train_kw = dict(train=True, generator=generator, levels=levels,
-                            depths=depths)
+                            depths=depths, rows=rows)
         q = self.quantize(z, feat, n_quantizers, level, **train_kw)
         audio = self.decoder(q["z_q"])[..., :length]
         out = {

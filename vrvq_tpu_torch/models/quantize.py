@@ -8,6 +8,10 @@ float32 and the argmax keeps the first maximum, as in the JAX module.
 Train mode draws one level per clip and partitions the batch into
 importance-masked, random-depth (dropout) and full-codebook rows; the draws
 come from a ``torch.Generator`` or are passed in (``levels``, ``depths``).
+Under data parallelism a train forward sees its rows of a larger batch
+(``rows = (offset, total)``): the draws and the partition are the whole
+batch's, and the forward keeps the part of each that its rows hold, so the
+ranks together compute the one forward of the whole batch.
 The straight-through estimator and the mask's are detached as the JAX
 module's ``stop_gradient``: the encoder gets the gradient of z_q, the
 importance subnet that of the smooth mask.
@@ -33,7 +37,7 @@ subclass gives the per-frame scores (``importance``) and their mask
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -41,6 +45,25 @@ from torch import nn
 from ..ops.masks import generate_mask_hard, generate_mask_ste
 from .importance import ImportanceSubnet
 from .wn_dense import WNDense1x1
+
+
+def local_parts(counts: Sequence[int], rows: Optional[Tuple[int, int]],
+                bs: int) -> List[Tuple[int, int]]:
+    """A train batch's parts (``counts`` rows each, in batch order) as the
+    rows ``[offset, offset + bs)`` of that batch of ``total`` rows hold them,
+    ``rows = (offset, total)`` (None: the whole batch, ``(0, bs)``). For each
+    part: how many of its rows are local, and the index within the part of
+    the first of them."""
+    offset, total = (0, bs) if rows is None else rows
+    if sum(counts) != total or not 0 <= offset <= total - bs:
+        raise ValueError(f"rows {offset}..{offset + bs} of a batch of {total} "
+                         f"(parts {list(counts)})")
+    out, start = [], 0
+    for n in counts:
+        lo, hi = max(start, offset), min(start + n, offset + bs)
+        out.append((hi - lo, lo - start) if hi > lo else (0, 0))
+        start += n
+    return out
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -180,26 +203,30 @@ class ResidualVectorQuantize(_Stages):
     def forward(self, z: torch.Tensor, n_quantizers: Optional[int] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                depths: Optional[Sequence[int]] = None) -> dict:
+                depths: Optional[Sequence[int]] = None,
+                rows: Optional[Tuple[int, int]] = None) -> dict:
         """z (B, D, T) -> z_q (B, D, T), codes (B, n, T), latents
         (B, n * d, T), and in train mode ``commitment_loss`` and
         ``codebook_loss`` (each row's stage means, masked by its depth, then
         the batch mean, summed over the stages). ``depths`` pins the dropout
-        rows' draws."""
+        rows' draws; ``rows = (offset, total)``: z holds those rows of a
+        train batch of ``total`` (draws and dropout rows are that batch's)."""
         bs = z.shape[0]
         if train and n_quantizers is not None:
             raise ValueError("train mode runs every stage (n_quantizers=None)")
         n_stages = self.n_stages(n_quantizers)
         if train:
-            n_dropout = int(bs * self.quantizer_dropout)
-            if depths is None:
-                depths = self.draws(bs, generator, z.device)["depths"]
+            total = bs if rows is None else rows[1]
+            n_all = int(total * self.quantizer_dropout)
+            (n_dropout, first), _ = local_parts((n_all, total - n_all), rows, bs)
+            if depths is None and n_all > 0:
+                depths = self.draws(total, generator, z.device)["depths"]
             keep = torch.full((bs,), float(self.n_codebooks + 1), dtype=z.dtype,
                               device=z.device)
             if n_dropout > 0:
                 keep = torch.cat([torch.as_tensor(depths, device=z.device)
-                                  .to(z.dtype).reshape(n_dropout),
-                                  keep[n_dropout:]])
+                                  .reshape(-1)[first:first + n_dropout]
+                                  .to(z.dtype), keep[n_dropout:]])
         residual = z
         z_q, commitment, codebook = 0.0, 0.0, 0.0
         codes, latents = [], []
@@ -309,7 +336,8 @@ class GatedResidualVectorQuantize(_Stages):
                 level: Optional[float] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 levels: Optional[torch.Tensor] = None,
-                depths: Optional[Sequence[int]] = None) -> dict:
+                depths: Optional[Sequence[int]] = None,
+                rows: Optional[Tuple[int, int]] = None) -> dict:
         """z, feat_enc (B, D, T). Returns z_q (B, D, T), z_q_is
         (B, n, D, T), codes (B, n, T), latents (B, n*d, T), imp_map
         (B, 1, T) or None and mask_imp (B, n, T).
@@ -318,7 +346,10 @@ class GatedResidualVectorQuantize(_Stages):
         (or takes ``levels (B,)``), gives the dropout rows depths drawn in
         [1, Nq] (or ``depths``), adds the masked ``commitment_loss`` and
         ``codebook_loss`` and keeps the importance rows of ``imp_map``
-        (``DAC_MOE``'s router: ``imp_map (B, Nq, T)``)."""
+        (``DAC_MOE``'s router: ``imp_map (B, Nq, T)``). With ``rows =
+        (offset, total)`` z holds those rows of a train batch of ``total``:
+        the levels, depths and partition are that batch's, and this forward
+        keeps its rows of each."""
         bs, _, frames = z.shape
         vbr = n_quantizers is None
         if train and not vbr:
@@ -326,8 +357,10 @@ class GatedResidualVectorQuantize(_Stages):
         if vbr and not train and level is None:
             raise ValueError("level must be specified in VBR inference")
         n_stages = self.n_stages(n_quantizers)
-        if train and (levels is None or depths is None):
-            drawn = self.draws(bs, generator, z.device)
+        offset, total = (0, bs) if rows is None else rows
+        if train and (levels is None or (
+                depths is None and self.partition(total)[1] > 0)):
+            drawn = self.draws(total, generator, z.device)
             levels = drawn["levels"] if levels is None else levels
             depths = drawn["depths"] if depths is None else depths
 
@@ -347,7 +380,7 @@ class GatedResidualVectorQuantize(_Stages):
             imp_map = self.importance(feat_enc, frames)
             if train:
                 scale = torch.as_tensor(levels, device=z.device).reshape(
-                    bs, 1, 1).to(z)
+                    -1)[offset:offset + bs].reshape(bs, 1, 1).to(z)
             else:
                 scale = level
             mask_imp = self.gate(imp_map * scale * self.n_codebooks)
@@ -359,10 +392,12 @@ class GatedResidualVectorQuantize(_Stages):
 
         n_imps = bs
         if train:
-            n_imps, n_dropout, n_full = self.partition(bs)
+            (n_imps, _), (n_dropout, first), (n_full, _) = local_parts(
+                self.partition(total), rows, bs)
             parts = [mask_imp[:n_imps]]
             if n_dropout > 0:
-                depths = torch.as_tensor(depths, device=z.device).to(z.dtype)
+                depths = torch.as_tensor(depths, device=z.device).reshape(
+                    -1)[first:first + n_dropout].to(z.dtype)
                 parts.append(generate_mask_hard(
                     depths.reshape(n_dropout, 1, 1).expand(n_dropout, 1, frames),
                     self.n_codebooks))

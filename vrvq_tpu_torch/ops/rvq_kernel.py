@@ -300,13 +300,16 @@ def fused_rvq_prepared(
     codes = torch.empty((f, n_q), dtype=torch.int32, device=z.device)
     if f == 0:
         return z_q, codes
-    err = lib.vrvq_rvq_forward(
-        z.data_ptr(), prepared.packed.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        z_q.data_ptr(), codes.data_ptr(), f, d_model, dp_model, n_q, kp, dp,
-        cs,
-        torch.cuda.current_stream(z.device).cuda_stream,
-    )
+    # the runtime launches on (and raises the shared-memory limit of) the
+    # current card: make it z's
+    with torch.cuda.device(z.device):
+        err = lib.vrvq_rvq_forward(
+            z.data_ptr(), prepared.packed.data_ptr(),
+            mask.data_ptr() if mask is not None else None,
+            z_q.data_ptr(), codes.data_ptr(), f, d_model, dp_model, n_q, kp, dp,
+            cs,
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
     LAUNCHES["rvq"] += 1
     check(err, "fused_rvq")
     return z_q, codes

@@ -203,11 +203,12 @@ def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor,
     lib = library()
     partials = torch.empty((c, b * lib.vrvq_snake_backward_tiles(t)),
                            dtype=torch.float32, device=x.device)
-    err = lib.vrvq_snake_backward(
-        x.data_ptr(), alpha.data_ptr(), grad.data_ptr(), dx.data_ptr(),
-        partials.data_ptr(), dalpha.data_ptr(), b, c, t, int(approx),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the runtime launches on x's card
+        err = lib.vrvq_snake_backward(
+            x.data_ptr(), alpha.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), dalpha.data_ptr(), b, c, t, int(approx),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     name = "snake_approx_backward" if approx else "snake_backward"
     LAUNCHES[name] += 1
     check(err, name)
@@ -224,11 +225,12 @@ def _forward(x: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tensor
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    err = library().vrvq_snake_forward(
-        x.data_ptr(), alpha.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
-        x.shape[1], x.shape[2], DTYPES[x.dtype], int(approx),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the runtime launches on x's card
+        err = library().vrvq_snake_forward(
+            x.data_ptr(), alpha.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
+            x.shape[1], x.shape[2], DTYPES[x.dtype], int(approx),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     LAUNCHES[mode_name(x.dtype, approx)] += 1
     check(err, "snake")
     return y

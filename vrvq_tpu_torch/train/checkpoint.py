@@ -6,6 +6,11 @@ state dicts, both optimizers and the step) and ``{save_path}/{tag}/meta.json``
 ``best`` when the validation mel loss improves, ``{N}k`` at ``save_iters``.
 Tensors are saved as they are, so a load restores them bit for bit.
 ``load_gen_params`` gives an inference CLI its generator's parameters.
+
+In a process group every rank calls ``save_checkpoint`` (a ZeRO optimizer's
+state is gathered to rank 0 by all of them), rank 0 alone writes, and the
+ranks wait for it. The file holds the replicated layout, so a checkpoint
+saved by N ranks loads on M.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..parallel import dist as pdist
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -37,7 +43,18 @@ def save_checkpoint(state: TrainState, save_path, tags: List[str],
                     metadata: Optional[Dict[str, Any]] = None) -> None:
     """Write ``state`` under every tag: the state file through a temporary
     name (serialized once; a further tag gets a hard link to it, or a copy
-    where links fail), then ``meta.json``."""
+    where links fail), then ``meta.json``. Collective in a process group:
+    rank 0 writes, every rank returns once it has."""
+    sd = {"step": state.step,
+          **{name: getattr(state, name).state_dict()
+             for name in ("generator", "discriminator", "opt_g", "opt_d")}}
+    if pdist.rank() == 0:
+        _write(sd, save_path, tags, metadata)
+    pdist.barrier()
+
+
+def _write(sd: Dict[str, Any], save_path, tags: List[str],
+           metadata: Optional[Dict[str, Any]]) -> None:
     first = None
     for tag in tags:
         tag_dir = Path(save_path) / tag
@@ -45,10 +62,7 @@ def save_checkpoint(state: TrainState, save_path, tags: List[str],
         tmp = tag_dir / f"{STATE_FILE}.tmp"
         tmp.unlink(missing_ok=True)
         if first is None:
-            torch.save({"step": state.step,
-                        **{name: getattr(state, name).state_dict()
-                           for name in ("generator", "discriminator", "opt_g",
-                                        "opt_d")}}, tmp)
+            torch.save(sd, tmp)
         else:
             try:
                 os.link(first, tmp)
@@ -56,7 +70,7 @@ def save_checkpoint(state: TrainState, save_path, tags: List[str],
                 shutil.copyfile(first, tmp)
         os.replace(tmp, tag_dir / STATE_FILE)
         first = first or tag_dir / STATE_FILE
-        meta = {"step": state.step, **(metadata or {})}
+        meta = {"step": sd["step"], **(metadata or {})}
         with open(tag_dir / "meta.json", "w") as f:
             json.dump(meta, f, indent=2, default=str)
 

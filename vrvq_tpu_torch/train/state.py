@@ -6,6 +6,15 @@ package's optax chain: clipping by global norm, then AdamW (β 0.8 / 0.99,
 the update count before the update (optax's ``count``). The clip is optax's
 expression, ``(g / norm) * max_norm`` where ``norm >= max_norm`` (not
 ``clip_grad_norm_``, which adds 1e-6 to the norm).
+
+``zero=True`` shards AdamW's state over the ranks of the process group
+(``parallel.zero_optimizer``, the JAX package's ``zero_shard_opt_state``):
+the clip and the schedule run on the full gradients, which the train step
+has averaged over the ranks, and each rank updates the parameters it owns.
+Its ``state_dict`` is collective: every rank calls it, rank 0 gets the
+replicated optimizer's layout (other ranks None), so a checkpoint does not
+depend on the number of ranks. As in JAX, ZeRO is an argument, not a config
+key.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from typing import Iterable, List, Optional
 import torch
 from torch import nn
 
+from ..parallel import dist as pdist
 from .schedule import exponential_lr
 
 
@@ -31,14 +41,15 @@ class Optimizer:
     def __init__(self, params: Iterable[nn.Parameter], lr: float = 1e-4,
                  betas=(0.8, 0.99), weight_decay: float = 1e-2,
                  gamma: float = 0.999996, warmup: int = 0,
-                 max_grad_norm: Optional[float] = None):
+                 max_grad_norm: Optional[float] = None, zero: bool = False):
         self.params = list(params)
         self.schedule = exponential_lr(lr, gamma, warmup)
         self.max_grad_norm = max_grad_norm
         self.count = 0
-        self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0),
-                                       betas=tuple(betas), eps=1e-8,
-                                       weight_decay=weight_decay)
+        self.zero = zero
+        make = pdist.zero_optimizer if zero else torch.optim.AdamW
+        self.adamw = make(self.params, lr=self.schedule(0), betas=tuple(betas),
+                          eps=1e-8, weight_decay=weight_decay)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -60,7 +71,14 @@ class Optimizer:
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
+    def state_dict(self) -> Optional[dict]:
+        """The AdamW state and the update count. Under ZeRO a collective:
+        rank 0 gets the whole state, the other ranks None."""
+        if not self.zero:
+            return {"adamw": self.adamw.state_dict(), "count": self.count}
+        self.adamw.consolidate_state_dict(to=0)
+        if pdist.rank() != 0:
+            return None
         return {"adamw": self.adamw.state_dict(), "count": self.count}
 
     def load_state_dict(self, sd: dict) -> None:

@@ -1,6 +1,8 @@
 """A minimal metrics tracker (counterpart of ``vrvq_tpu/train/tracker.py``):
 the step, per-phase means, ``log.txt``, the best of a watched metric, and a
-state dict for checkpoints. No TensorBoard."""
+state dict for checkpoints. No TensorBoard. In a process group every rank
+keeps the same sums (the metrics are the ranks' means); only rank 0 prints
+and writes the log."""
 
 from __future__ import annotations
 
@@ -9,8 +11,10 @@ from typing import Any, Dict, Optional
 
 
 class Tracker:
-    def __init__(self, log_file: Optional[str] = None, log_every: int = 50):
+    def __init__(self, log_file: Optional[str] = None, log_every: int = 50,
+                 rank: int = 0):
         self.step = 0
+        self.rank = rank
         self.log_every = log_every
         self.log_file = log_file
         self.history: Dict[str, list] = defaultdict(list)
@@ -19,6 +23,8 @@ class Tracker:
         self._best: Dict[str, float] = {}
 
     def print(self, msg: str) -> None:
+        if self.rank != 0:
+            return
         print(msg, flush=True)
         if self.log_file:
             with open(self.log_file, "a") as f:

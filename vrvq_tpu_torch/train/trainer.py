@@ -13,8 +13,18 @@ trainer folds the step into its key. Data are loaded on the host between
 steps (no prefetch thread); the transforms run on the device.
 ``grad_accum_steps`` K takes each update over K micro-batches
 (``loop.make_train_step``); ``split_train_step`` is the same update in the
-port. Not ported: data parallelism, ``remat``, ``amp``, sample logging and
-TensorBoard.
+port; ``remat`` recomputes the generator's forward in its backward.
+
+Data parallelism, as the JAX trainer's ``data`` mesh: run in a process group
+(``parallel.init_distributed``; the train CLI starts one), each rank loads
+only its rows of every global batch (``parallel.local_rows``), the step
+averages the gradients over the ranks, and every rank ends each step with
+the same parameters, those of the single-card step on the global batch.
+Validation is data-parallel where the val batch divides the ranks and
+replicated otherwise, its means averaged over the ranks. Rank 0 alone
+guards against clobbering, writes the log and the checkpoints. ``zero``
+shards AdamW's state over the ranks (an argument, as in JAX, not a key).
+Not ported: ``amp``, sample logging and TensorBoard.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import dataclasses
 import inspect
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ from ..data.transforms import TRANSFORMS, build_transform
 from ..losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
 from ..models.dac_vrvq import DAC_VRVQ
 from ..models.discriminator import Discriminator
+from ..parallel import dist as pdist
 from . import checkpoint as ckpt
 from .loop import make_train_step, make_val_step
 from .state import TrainState, make_optimizer
@@ -44,7 +55,8 @@ from .tracker import Tracker
 # plain keys the trainer and the train CLI read
 TRAIN_KEYS = {"resume", "overwrite_ok", "tag", "batch_size", "val_batch_size",
               "num_iters", "save_iters", "valid_freq", "seed", "lambdas",
-              "grad_accum_steps", "split_train_step", "save_path", "device"}
+              "grad_accum_steps", "split_train_step", "remat", "save_path",
+              "device", "coordinator", "num_processes", "process_id"}
 # keys of the JAX trainer that change nothing the port computes
 NO_EFFECT = {
     "num_workers": "the port loads each batch on the host, with no worker pool",
@@ -54,7 +66,7 @@ NO_EFFECT = {
     "transforms_on_host": "the port applies the transforms on the device",
 }
 # keys the port takes only at the value it runs
-FIXED = {"amp": False, "remat": False}
+FIXED = {"amp": False}
 
 
 def _args(obj, skip=()) -> set:
@@ -155,10 +167,13 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(key)
 
 
-def load_batch(dataset, step: int, batch_size: int) -> Dict:
-    """The collated items ``step * batch_size + i`` (mod the dataset)."""
+def load_batch(dataset, step: int, batch_size: int,
+               rows: Optional[List[int]] = None) -> Dict:
+    """The collated items ``step * batch_size + i`` (mod the dataset) of the
+    global batch's ``rows`` (all ``batch_size`` of them by default)."""
     n = max(len(dataset), 1)
-    items = [dataset[(step * batch_size + i) % n] for i in range(batch_size)]
+    rows = range(batch_size) if rows is None else rows
+    items = [dataset[(step * batch_size + i) % n] for i in rows]
     return dataset.collate(items)
 
 
@@ -170,13 +185,17 @@ def prepare_audio(dataset, batch: Dict, device: torch.device) -> torch.Tensor:
 
 
 def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
-         resume: bool = False, tag: str = "latest", device=None) -> State:
+         resume: bool = False, tag: str = "latest", device=None,
+         zero: bool = False) -> State:
     """Build the networks (drawn from ``seed``, or resumed from ``tag``),
-    optimizers, steps and datasets, on the card unless ``device`` says
-    otherwise."""
+    optimizers (``zero``: AdamW's state sharded over the ranks), steps and
+    datasets, on the card unless ``device`` says otherwise, with TF32 off
+    (float32, as the JAX package trains). In a process group every rank
+    calls it and starts from rank 0's parameters."""
     cfg = as_config(cfg)
     check_keys(cfg)
     device = resolve_device("cuda" if device is None else device)
+    disable_tf32()
     seed = int(cfg.get("seed", 0))
     draw = torch.Generator().manual_seed(seed)
     generator = init_params(DAC_VRVQ(model_config(cfg)), draw).to(device)
@@ -188,8 +207,10 @@ def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
                   gamma=explr.get("gamma", 1.0), warmup=explr.get("warmup", 0))
     train_state = TrainState(
         generator, discriminator,
-        make_optimizer(generator.parameters(), max_grad_norm=1e3, **opt_kw),
-        make_optimizer(discriminator.parameters(), max_grad_norm=10.0, **opt_kw))
+        make_optimizer(generator.parameters(), max_grad_norm=1e3, zero=zero,
+                       **opt_kw),
+        make_optimizer(discriminator.parameters(), max_grad_norm=10.0, zero=zero,
+                       **opt_kw))
 
     waveform_loss = L1Loss()
     stft_loss = MultiScaleSTFTLoss(**cfg.kwargs("MultiScaleSTFTLoss"))
@@ -204,11 +225,14 @@ def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
         meta = ckpt.load_metadata(save_path, tag)
         tracker.load_state_dict(meta.get("tracker", {}))
         tracker.step = train_state.step
+    pdist.broadcast_params_(generator)
+    pdist.broadcast_params_(discriminator)
 
     return State(
         train_state=train_state,
         train_step=make_train_step(lambdas, stft_loss, mel_loss, waveform_loss,
-                                   accum_steps=int(cfg.get("grad_accum_steps", 1))),
+                                   accum_steps=int(cfg.get("grad_accum_steps", 1)),
+                                   remat=bool(cfg.get("remat", False))),
         val_step=make_val_step(stft_loss, mel_loss, waveform_loss),
         train_data=build_dataset(cfg, generator.sample_rate, "train"),
         val_data=build_dataset(cfg, generator.sample_rate, "val"),
@@ -218,15 +242,24 @@ def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
 
 
 def validate(state: State, batch_size: int) -> Dict[str, float]:
-    """The val step over the whole val set; its means, logged as ``val``."""
-    n = len(state.val_data)
+    """The val step over the whole val set; its means, logged as ``val``.
+    In a process group a val batch that divides the ranks is split into
+    their blocks (its means averaged over them), any other runs whole on
+    every rank."""
+    n, world, rank = len(state.val_data), pdist.world(), pdist.rank()
     for start in range(0, n, batch_size):
-        items = [state.val_data[i] for i in range(start, min(start + batch_size, n))]
-        audio = prepare_audio(state.val_data, state.val_data.collate(items),
-                              state.device)
+        idxs = list(range(start, min(start + batch_size, n)))
+        sharded = world > 1 and len(idxs) % world == 0
+        if sharded:
+            per = len(idxs) // world
+            idxs = idxs[rank * per:(rank + 1) * per]
+        audio = prepare_audio(state.val_data, state.val_data.collate(
+            [state.val_data[i] for i in idxs]), state.device)
         out = state.val_step(state.train_state.generator, audio)
-        values = torch.stack([v.float() for v in out.values()]).tolist()
-        state.tracker.log_metrics("val", dict(zip(out, values)))
+        values = torch.stack([v.float() for v in out.values()])
+        if sharded:
+            values = pdist.mean_over_ranks(values)
+        state.tracker.log_metrics("val", dict(zip(out, values.tolist())))
     return state.tracker.done("val", f"Iteration {state.tracker.step}")
 
 
@@ -236,32 +269,38 @@ def _sync(device: torch.device) -> None:
 
 
 def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
-          device=None) -> State:
+          device=None, zero: bool = False) -> State:
     """Train for ``num_iters`` steps (from the ``tag`` checkpoint, ``latest``
     by default, with ``resume``), validating and saving at every
     ``valid_freq``-th step and the last. Runs on the card unless ``device``
     says otherwise; float32 with TF32 off, as the JAX package trains
-    (``amp: false``)."""
+    (``amp: false``). In a process group every rank calls it with its own
+    device (``zero``: AdamW's state sharded over the ranks)."""
     cfg = as_config(cfg)
     check_keys(cfg)
     device = resolve_device("cuda" if device is None else device)
-    disable_tf32()
+    world, rank = pdist.world(), pdist.rank()
+    batch_size = int(cfg.get("batch_size", 12))
+    rows = pdist.local_rows(batch_size, rank, world, int(cfg.get("grad_accum_steps", 1)))
     latest = Path(save_path) / "latest"
     # A fresh run pointed at a directory that holds a checkpoint would
     # overwrite it at its first save: demand resume or overwrite_ok.
-    if (not cfg.get("resume", False) and not cfg.get("overwrite_ok", False)
-            and ((latest / "meta.json").exists() or (latest / ckpt.STATE_FILE).exists())):
+    clobber = rank == 0 and (
+        not cfg.get("resume", False) and not cfg.get("overwrite_ok", False)
+        and ((latest / "meta.json").exists() or (latest / ckpt.STATE_FILE).exists()))
+    if pdist.broadcast_object(clobber):
         raise FileExistsError(
             f"{str(save_path)!r} already contains checkpoints; set resume: true "
             "to continue that run, overwrite_ok: true to discard it, or pick a "
             "fresh save_path")
-    Path(save_path).mkdir(parents=True, exist_ok=True)
-    tracker = Tracker(log_file=str(Path(save_path) / "log.txt"))
+    if rank == 0:
+        Path(save_path).mkdir(parents=True, exist_ok=True)
+    tracker = Tracker(log_file=str(Path(save_path) / "log.txt") if rank == 0 else None,
+                      rank=rank)
     state = load(cfg, tracker, save_path, resume=cfg.get("resume", False),
-                 tag=cfg.get("tag", "latest"), device=device)
+                 tag=cfg.get("tag", "latest"), device=device, zero=zero)
 
     seed = int(cfg.get("seed", 0))
-    batch_size = int(cfg.get("batch_size", 12))
     val_batch_size = int(cfg.get("val_batch_size", 10))
     num_iters = int(cfg.get("num_iters", 250000))
     save_iters = cfg.get("save_iters", []) or []
@@ -270,7 +309,8 @@ def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
         tracker.step = step
         t0 = time.perf_counter()
         audio = prepare_audio(state.train_data,
-                              load_batch(state.train_data, step, batch_size), device)
+                              load_batch(state.train_data, step, batch_size, rows),
+                              device)
         _sync(device)
         t1 = time.perf_counter()
         metrics = state.train_step(state.train_state, audio,
