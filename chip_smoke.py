@@ -2,7 +2,7 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It
-builds the kernels (one ``nvcc`` call), then runs thirteen phases and prints
+builds the kernels (one ``nvcc`` call), then runs fourteen phases and prints
 one line for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
@@ -45,6 +45,23 @@ one line for each:
            frames, mask agreement, decode SI-SDR of the fixture's codes,
            and as a control the same decode with TF32 convs, which must
            fall under the bar that the float32 decode clears;
+  eval     one seeded 3 s clip in each format (wav, flac with LPC
+           subframes, mp3 where libmp3lame and libmpg123 load, m4a where the
+           FFmpeg shim builds; named ``split_NNNN_<class>``), each read back:
+           wav and flac (and a fixed-subframe flac) equal to the written
+           16-bit PCM bit for bit, mp3 and m4a at the JAX package's test
+           bars, the host ms per second of audio of each reader; then
+           ``cli.evaluate`` of the flagship (seeded weights) on the folder at
+           levels 1 and 2 with ViSQOL (per-level means, kbps rising with the
+           level, ViSQOL in [0, 1], the seconds of loading, the sweep, the
+           metrics and ViSQOL), and again with ``--fast 1``; the report's
+           SI-SDR and mel on one clip against the same evaluation with the
+           Snake kernels swapped for their plain versions (1e-3 relative);
+           ``cli.stream_demo`` of the flac with the fused quantizer and wire
+           packets against compress + decompress of the file (60 dB); K2
+           against its plain version, timed, at every shape of the three
+           paths' censuses (the evaluator's batch-1 encoder and batch-2
+           level decode are shapes no earlier phase gives it);
   train    ``train()`` of the flagship generator and discriminator (MPD
            2/3/5/7/11, MRD 2048/1024/512) on 32 seeded 1 s wavs through the
            port's loader, batch 16 x 0.38 s, vrvq_a2.yml's lambdas: 3 steps
@@ -117,7 +134,8 @@ pool batch's 576, and at 28 stages; K2's forward and backward over the train
 step's census, in the exact and in the polynomial mode; K2's forward and
 backward in the parallel phase's one-rank steps (the train step's census)
 and in its ranks' steps (a rank's census), K1 and K2 in its pool over the
-cards, timed at the pool's census), each
+cards, timed at the pool's census; K2 over the evaluator's census, exact and
+fast, and over ``stream_demo``'s, K1 in ``stream_demo``), each
 with the launches of its path (counts cleared just before the path runs,
 read just after), the card's ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -127,8 +145,10 @@ exits non-zero; without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -145,7 +165,10 @@ import vrvq_tpu_torch as port
 from vrvq_tpu_torch import kernel_times as kt
 from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
-from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config, model_config
+from vrvq_tpu_torch.cli import evaluate as cli_eval
+from vrvq_tpu_torch.cli import stream_demo as cli_stream
+from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config, model_config, parse_args
+from vrvq_tpu_torch.data import audio_io, ffdecode, mpeg
 from vrvq_tpu_torch.kernels import build
 from vrvq_tpu_torch.metrics import si_sdr
 from vrvq_tpu_torch.models.importance import ImportanceSubnet
@@ -210,6 +233,15 @@ PAR_UPDATE_REL_L2 = 1e-3  # the update: each network's gradient, the parameters
 REMAT_LOSS_RTOL = 1e-5  # remat against the plain step
 REMAT_UPDATE_REL_L2 = 1e-4
 PAR_TIMEOUT_S = 300
+# the eval phase: one seeded 3 s clip in each format, named by class, through
+# cli.evaluate (levels 1 and 2) and cli.stream_demo
+EVAL_CLIP_S = 3.0
+EVAL_CLIPS = (("split_0000_speech", ".wav"), ("split_0001_music", ".flac"),
+              ("split_0002_noise+music", ".mp3"), ("split_0003_tone", ".m4a"))
+EVAL_LEVELS = "1,2"
+EVAL_REL = 1e-3  # eval.json's SI-SDR and mel, kernels against plain
+MIN_MP3_DB = 20.0  # tests/test_mp3.py's bar against the source
+MIN_AAC_DB = 15.0  # tests/test_mp4.py's, after aligning out the priming
 
 
 _LAST_PHASE = [time.perf_counter()]
@@ -741,6 +773,250 @@ def reference_phase(model):
           decode_si_sdr_db=sound_db, min_decode_si_sdr_db=MIN_REFERENCE_DB,
           tf32_control_decode_si_sdr_db=tf32_db,
           own_decode_si_sdr_db=si_sdr(out["audio"][None], fixture["audio"][None]))
+
+
+def tests_module(name: str):
+    """``tests/<name>.py`` of this repo, loaded by path (on the card's machine
+    another project's ``tests`` package shadows this repo's)."""
+    spec = importlib.util.spec_from_file_location(f"_repo_tests_{name}",
+                                                  REPO / "tests" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def rvq_calls():
+    """While open, records (frames, weights) of every ``fused_rvq_prepared``
+    call, in whichever model makes it (the CLIs build their own)."""
+    calls = []
+    inner = rvq_ops.fused_rvq_prepared
+
+    def record(z, prepared, mask=None):
+        calls.append((int(z.shape[0]), prepared.weights))
+        return inner(z, prepared, mask)
+
+    rvq_ops.fused_rvq_prepared = record
+    try:
+        yield calls
+    finally:
+        rvq_ops.fused_rvq_prepared = inner
+
+
+def counted(fn, *args, plain: bool = False, **kwargs):
+    """``fn``'s result, the kernels' launches of its run (counts cleared just
+    before, read just after) and its Snake census: a launch for every Snake
+    call of each mode, or with ``plain`` (the plain versions) none at all."""
+    with kt.snake_census(by_mode=True) as census:
+        build.LAUNCHES.clear()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    if plain:
+        assert not launches, launches
+        return out, launches, census
+    for mode in {m for m, _ in census}:
+        assert launches.get(mode, 0) == sum(
+            n for (m, _), n in census.items() if m == mode), (census, launches)
+    return out, launches, census
+
+
+def snr_db(ref, got) -> float:
+    n = min(ref.shape[-1], got.shape[-1])
+    ref, got = ref[..., :n], got[..., :n]
+    return float(10 * np.log10((ref ** 2).sum() / max(((ref - got) ** 2).sum(), 1e-12)))
+
+
+def aligned_snr_db(ref, got, max_lag: int = 5000) -> float:
+    """SNR after aligning out an AAC encoder's priming delay."""
+    n = min(ref.shape[-1], got.shape[-1]) - max_lag
+    r = ref[0, :n]
+    lag = max(range(max_lag), key=lambda lg: float(np.dot(r, got[0, lg:lg + n])))
+    return snr_db(ref[:, :n], got[:, lag:lag + n])
+
+
+def write_eval_clips(folder: Path, sr: int):
+    """One seeded 3 s mono clip in each format of ``EVAL_CLIPS`` (mp3 where
+    libmp3lame and libmpg123 load, m4a where the FFmpeg shim builds), and a
+    fixed-subframe flac of the flac's clip beside the folder; each read back
+    and checked: wav and flac equal to the written 16-bit PCM bit for bit, mp3
+    and m4a at the JAX package's test bars. Returns the readers' line and
+    the flac's path."""
+    flac_enc, mp3_enc = tests_module("flac_encoder"), tests_module("mp3_encoder")
+    folder.mkdir()
+    formats, flac_path = {}, None
+    for i, (stem, ext) in enumerate(EVAL_CLIPS):
+        x = port.synthetic_clip(EVAL_CLIP_S, sr, SEED + 200 + i)[0]  # (1, T)
+        pcm = np.round(np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int64)
+        path = folder / f"{stem}{ext}"
+        if ext == ".wav":
+            audio_io.write_wav(path, x, sr)
+        elif ext == ".flac":
+            flac_enc.write_flac(path, pcm, sr, block_size=4096, subframe_kind="lpc", order=2)
+            flac_enc.write_flac(folder.parent / "fixed.flac", pcm, sr, block_size=4096,
+                                subframe_kind="fixed", order=2)
+            flac_path = path
+        elif ext == ".mp3":
+            if not (mp3_enc.lame_available() and mpeg.available()):
+                formats[ext] = {"unavailable": "libmp3lame or libmpg123 not found"}
+                continue
+            path.write_bytes(mp3_enc.encode_mp3(x, sr))
+        elif ext == ".m4a":
+            if not ffdecode.available():
+                formats[ext] = {"unavailable": ffdecode._REASON}
+                continue
+            ffdecode.encode_aac(path, x, sr)
+        paths = [path] + ([folder.parent / "fixed.flac"] if ext == ".flac" else [])
+        for p in paths:
+            t0 = time.perf_counter()
+            got, got_sr = audio_io.read_audio(p)
+            ms = (time.perf_counter() - t0) * 1000 / EVAL_CLIP_S
+            assert got_sr == sr and got.shape[0] == 1, (p, got.shape, got_sr)
+            row = {"host_ms_per_audio_s": ms, "frames": int(got.shape[-1])}
+            if ext in (".wav", ".flac"):
+                assert np.array_equal(np.round(got * 32768.0).astype(np.int64), pcm), p
+                row["bit_exact"] = True
+            elif ext == ".mp3":
+                row["snr_db"] = snr_db(x, got)
+                assert got.shape == x.shape and row["snr_db"] > MIN_MP3_DB, (p, row)
+            else:
+                row["aligned_snr_db"] = aligned_snr_db(x, got)
+                assert abs(got.shape[-1] - x.shape[-1]) < 2048, (p, got.shape)
+                assert row["aligned_snr_db"] > MIN_AAC_DB, (p, row)
+            formats[p.name if p.name == "fixed.flac" else ext] = row
+    return formats, flac_path
+
+
+def snake_mode_row(census, mode, gen, base_census):
+    """K2 in ``mode`` against its plain version, timed, at every shape of
+    that mode in a path's census: ms, plain and bound summed over the census
+    (each shape weighted by its launches), and the shapes new beside
+    ``base_census``."""
+    mode_census = of_mode(census, mode)
+    with torch.inference_mode():
+        checks = [snake_check(s, gen, mode) for s in sorted(mode_census)]
+    return {**census_row(checks, mode_census),
+            "launches": sum(mode_census.values()),
+            "new_shapes": len(set(mode_census) - set(base_census))}
+
+
+def rvq_stream_row(calls, launches, gen):
+    """K1 against its plain version, timed, at every frame count of a run's
+    recorded calls, with that run's weights: ms, plain and bound the mean of
+    a launch over the run's calls, and the census frames -> launches."""
+    frames = collections.Counter(f for f, _ in calls)
+    assert sum(frames.values()) == launches, (frames, launches)
+    weights = calls[0][1]
+    with torch.inference_mode():
+        checks = {f: rvq_check(weights, gen, f) for f in sorted(frames)}
+    assert len({c["bound_by"] for c in checks.values()}) == 1, checks
+    row = {k: sum(n * checks[f][k] for f, n in frames.items()) / launches
+           for k in ("ms", "plain_ms", "bound_ms")}
+    return {**row, "launches": launches, "frames": dict(frames),
+            "bound_by": checks[min(frames)]["bound_by"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values())}
+
+
+def eval_argv(folder: Path, out: Path, *extra):
+    return ["--args.load", FLAGSHIP_YAML, "--data_dir", str(folder), "--duration",
+            str(EVAL_CLIP_S), "--levels", EVAL_LEVELS, "--out", str(out), *extra]
+
+
+def eval_phase(gen, serve_census):
+    """cli.evaluate and cli.stream_demo at flagship width (seeded weights) on
+    a clip in each format: the readers checked, the evaluator's report and
+    its Snake census (exact, and the fast profile's), the report's SI-SDR and
+    mel against the plain path on one clip, the stream against compress +
+    decompress of the same file."""
+    sr = port.FLAGSHIP.sample_rate
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp) / "clips"
+        formats, flac_path = write_eval_clips(folder, sr)
+        clip_formats = [c.suffix for c in sorted(folder.iterdir())]
+        n_clips = len(clip_formats)
+
+        seconds = {}
+        report, launches, census = counted(cli_eval.main, eval_argv(
+            folder, Path(tmp) / "eval.json", "--visqol", "1", "--fast", "0"), seconds)
+        levels = report["levels"]
+        assert report["num_examples"] == n_clips and len(levels) == 2, report
+        low, high = levels.values()  # levels 1 and 2
+        assert high["kbps"] > low["kbps"], levels
+        for lv in levels.values():
+            assert all(np.isfinite(v["mean"]) for k, v in lv.items()
+                       if isinstance(v, dict)), lv
+            assert 0.0 <= lv["ViSQOL"]["mean"] <= 1.0, lv
+        assert launches.get("snake", 0) > 0 and set(launches) == {"snake"}, launches
+        fast_report, fast_launches, fast_census = counted(cli_eval.main, eval_argv(
+            folder, Path(tmp) / "fast.json", "--fast", "1"))
+        assert fast_launches.get("snake_approx_bf16", 0) > 0, fast_launches
+
+        # one clip through the kernels and through the plain versions
+        one = parse_args(eval_argv(folder, Path(tmp) / "one.json", "--fast", "0",
+                                   "--num_examples", "1"), base_dir=REPO)
+        model = cli_eval.load_model(one, DEVICE, fast=False)
+        kernel_one, one_launches, _ = counted(cli_eval.evaluate, one, model=model)
+        plain_one, _, _ = counted(cli_eval.evaluate, one, plain=True,
+                                  model=model.clone(padding=True).use_kernels(False))
+        assert one_launches.get("snake", 0) > 0, one_launches
+        kernel_one, plain_one = kernel_one["levels"], plain_one["levels"]
+        plain_rel = {}
+        for lv, stats in kernel_one.items():
+            for m in ("SI-SDR", "mel"):
+                a, b = stats[m]["mean"], plain_one[lv][m]["mean"]
+                plain_rel[f"{lv} {m}"] = abs(a - b) / abs(b)
+        assert max(plain_rel.values()) <= EVAL_REL, plain_rel
+
+        with rvq_calls() as k1_calls:
+            stream, stream_launches, stream_census = counted(cli_stream.main, [
+                "--args.load", FLAGSHIP_YAML, "--input", str(flac_path), "--output",
+                str(Path(tmp) / "stream.wav"), "--level", "1.0", "--fused_quantizer",
+                "1", "--entropy", "1"])
+        assert stream_launches.get("rvq", 0) > 0 and stream_launches.get("snake", 0) > 0
+        proc = port.CodecProcessor(model, fused_quantizer=True)
+        dac = proc.compress(port.Signal.load(flac_path), win_duration=1.0,
+                            normalize_db=None, level=1.0)
+        expected = proc.decompress(dac).audio_data
+        got = port.Signal(stream["audio"][None, None], sr).normalize(dac.input_db)
+        stream_db = si_sdr(got.audio_data[..., : expected.shape[-1]], expected)
+        assert stream_db >= MIN_SISDR_DB, stream_db
+        assert audio_io.read_audio(stream["output"])[0].shape[-1] == stream["samples"]
+        del model, proc
+
+    # --fast 1 runs the encoder's Snakes exact in float32: those outside the
+    # --fast 0 census (none expected) are held against the plain version too
+    assert {m for m, _ in census} == {"snake"}, census
+    assert {m for m, _ in fast_census} <= {"snake", "snake_approx_bf16"}, fast_census
+    assert {m for m, _ in stream_census} == {"snake"}, stream_census
+    fast_exact = of_mode(fast_census, "snake")
+    outside = sorted(set(fast_exact) - set(of_mode(census, "snake")))
+    with torch.inference_mode():
+        for shape in outside:
+            snake_check(shape, gen, timed=False)
+    rows = {"eval": snake_mode_row(census, "snake", gen, serve_census),
+            "eval_fast": {**snake_mode_row(fast_census, "snake_approx_bf16", gen,
+                                           serve_census),
+                          "exact_launches": sum(fast_exact.values()),
+                          "exact_shapes_outside_eval": len(outside)},
+            "stream": snake_mode_row(stream_census, "snake", gen, serve_census),
+            "stream_rvq": rvq_stream_row(k1_calls, stream_launches["rvq"], gen),
+            "clips": n_clips, "formats": clip_formats}
+    phase("eval", clips=n_clips, formats=formats,
+          levels={lv: {m: (v["mean"] if isinstance(v, dict) else v)
+                       for m, v in stats.items()} for lv, stats in levels.items()},
+          per_class_top_level=sorted(report["per_class_top_level"]),
+          codebook_entropy_bits=report["codebook_entropy_bits"],
+          imp_map_energy_corr=report.get("imp_map_energy_corr"),
+          seconds=seconds, visqol_ms_per_pair=seconds["visqol"] * 1000 / (
+              n_clips * len(levels)),
+          launches=launches, fast_launches=fast_launches,
+          fast_si_sdr={lv: s["SI-SDR"]["mean"] for lv, s in fast_report["levels"].items()},
+          plain_rel_err=plain_rel, one_clip_launches=one_launches,
+          stream_launches=stream_launches,
+          stream={k: v for k, v in stream.items() if k != "audio"},
+          stream_vs_compress_si_sdr_db=stream_db,
+          by_path=rows)
+    return rows
 
 
 def write_wavs(wav_dir: Path) -> Path:
@@ -1726,6 +2002,8 @@ def main() -> int:
     reference_phase(model)
     del model
     torch.cuda.empty_cache()
+    eval_rows = eval_phase(gen, census)
+    torch.cuda.empty_cache()
     rvq_24kbps = configs_phase(gen)
     bf16_encoder_row = models_phase(gen)
     train_rows = train_phase(gen)
@@ -1847,6 +2125,34 @@ def main() -> int:
          "per": "8 streams x 10 s through StreamPool over every card (times: a "
                 "pool batch of 576 frames on one card; with several cards each "
                 "card's block is checked on the last card)"},
+    ]
+    eval_fast, stream_rvq = eval_rows["eval_fast"], eval_rows["stream_rvq"]
+    clips = (f"{eval_rows['clips']} x {EVAL_CLIP_S:g} s clips "
+             f"({', '.join(eval_rows['formats'])})")
+    kernels += [
+        kernel_row("snake_eval", eval_rows["eval"], **source,
+                   per=f"exact float32, cli.evaluate --fast 0 of {clips} at levels "
+                       f"1 and 2: {eval_rows['eval']['launches']} launches over "
+                       f"{eval_rows['eval']['shapes']} shapes "
+                       f"({eval_rows['eval']['new_shapes']} not in the serve census)"),
+        kernel_row("snake_approx_bf16_eval", eval_fast, **source,
+                   per=f"polynomial bfloat16 (the fast decoder), cli.evaluate --fast 1 "
+                       f"of the same {clips}: {eval_fast['launches']} launches over "
+                       f"{eval_fast['shapes']} shapes; its {eval_fast['exact_launches']} exact "
+                       f"float32 encoder launches are snake_eval's mode, "
+                       f"{eval_fast['exact_shapes_outside_eval']} of their shapes outside "
+                       f"snake_eval's census (checked untimed)"),
+        kernel_row("snake_stream", eval_rows["stream"], **source,
+                   per=f"exact float32, cli.stream_demo of the {EVAL_CLIP_S:g} s flac "
+                       f"in 1 s windows: {eval_rows['stream']['launches']} launches "
+                       f"over {eval_rows['stream']['shapes']} shapes"),
+        {"name": "fused_rvq_stream", "route": "cuda", **rvq_source,
+         **{k: stream_rvq[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")},
+         "library_ms": None,
+         "per": f"cli.stream_demo --fused_quantizer 1, with its own weights: the "
+                f"mean launch over its calls (frames: launches "
+                f"{stream_rvq['frames']})"},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

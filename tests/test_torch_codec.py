@@ -208,6 +208,10 @@ BLOCKER = textwrap.dedent("""
     configured = {"vrvq_tpu_torch." + m for m in (
         "config", "cli", "cli.train", "cli.inference", "models.dac_moe")}
     assert configured <= walked, sorted(configured - walked)
+    evaluation = {"vrvq_tpu_torch." + m for m in (
+        "data.audio_io", "data.flac_py", "data.mpeg", "data.ffdecode", "visqol",
+        "losses.framewise", "cli.evaluate", "cli.stream_demo")}
+    assert evaluation <= walked, sorted(evaluation - walked)
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -629,3 +629,68 @@ def test_remat_step_on_the_card_equals_the_plain_step(cuda):
     assert float((g1 - g0).norm() / g0.norm()) <= 1e-4
     assert float((p1 - p0).norm() / p0.norm()) <= 1e-4
     assert l1["snake"] > l0["snake"] > 0 and l1["snake_backward"] == l0["snake_backward"]
+
+
+EVAL_YML = """\
+$include:
+  - conf/vrvq/vrvq_a2.yml
+DAC_VRVQ.encoder_dim: 8
+DAC_VRVQ.decoder_dim: 128
+DAC_VRVQ.n_codebooks: 4
+DAC_VRVQ.codebook_size: 64
+"""
+
+
+def test_eval_clis_default_to_the_card(cuda, tmp_path, monkeypatch):
+    """A flac decodes to its PCM; ``cli.evaluate`` and ``cli.stream_demo``
+    with no ``--device`` run on ``cuda:0`` through the kernels (K2; K1 too in
+    the fused stream). The flac encoder is loaded by path: on the card's
+    machine another project's ``tests`` package shadows this repo's."""
+    import importlib.util
+    from pathlib import Path
+
+    from vrvq_tpu_torch.cli import evaluate as cli_eval
+    from vrvq_tpu_torch.cli import stream_demo as cli_stream
+    from vrvq_tpu_torch.data.audio_io import read_audio
+    from vrvq_tpu_torch.infer.sweep import LevelSweep
+
+    spec = importlib.util.spec_from_file_location(
+        "flac_encoder_by_path", Path(__file__).with_name("flac_encoder.py"))
+    flac = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flac)
+    t = np.arange(int(1.2 * 44100)) / 44100
+    pcm = np.round(0.3 * np.sin(2 * np.pi * 440 * t) * 32767).astype(np.int64)[None]
+    data = tmp_path / "clips"
+    data.mkdir()
+    flac.write_flac(data / "split_0000_tone.flac", pcm, 44100, block_size=1024,
+                    subframe_kind="lpc", order=2)
+    audio, sr = read_audio(data / "split_0000_tone.flac")
+    assert sr == 44100 and np.array_equal(np.round(audio * 32768.0).astype(np.int64), pcm)
+
+    (tmp_path / "tiny.yml").write_text(EVAL_YML)
+    devices = []
+    real_encode = LevelSweep.encode
+
+    def spy(self, audio):
+        devices.append(audio.device)
+        return real_encode(self, audio)
+
+    monkeypatch.setattr(LevelSweep, "encode", spy)
+    LAUNCHES.clear()
+    report = cli_eval.main(["--args.load", str(tmp_path / "tiny.yml"), "--data_dir",
+                            str(data), "--duration", "1.0", "--levels", "0.5,1",
+                            "--out", str(tmp_path / "eval.json")])
+    torch.cuda.synchronize()
+    assert devices == [torch.device("cuda", 0)]
+    assert LAUNCHES["snake_approx_bf16"] > 0 and LAUNCHES["snake"] > 0, dict(LAUNCHES)
+    assert report["num_examples"] == 1 and "tone" in report["per_class_top_level"]
+
+    LAUNCHES.clear()
+    res = cli_stream.main(["--args.load", str(tmp_path / "tiny.yml"), "--input",
+                           str(data / "split_0000_tone.flac"), "--output",
+                           str(tmp_path / "out.wav"), "--fused_quantizer", "1",
+                           "--entropy", "1"])
+    torch.cuda.synchronize()
+    assert LAUNCHES["rvq"] > 0 and LAUNCHES["snake"] > 0, dict(LAUNCHES)
+    assert res["samples"] == pcm.shape[-1]
+    assert read_audio(tmp_path / "out.wav")[0].shape == pcm.shape

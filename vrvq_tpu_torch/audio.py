@@ -4,117 +4,25 @@ Counterpart of the part of ``vrvq_tpu/audio.py`` that ``compress``,
 ``decompress`` and the training loader touch: ``audio_data`` is a numpy
 ``(B, C, T)`` array, loudness is the BS.1770 meter of ``ops/loudness.py``,
 and the gain and excerpt arithmetic is the JAX package's line for line, so
-both packages hand the codec the same samples. Wav files are parsed here
-(``read_wav``, the JAX package's numpy reader: only the excerpt's bytes are
-read); ``resample`` goes through scipy's polyphase filter
-(``ops/resample.py``). Wav only: flac and mp3 are not ported.
+both packages hand the codec the same samples. Files of every format of
+``data/audio_io.AUDIO_EXTENSIONS`` (wav, flac, mp3, mp4, m4a) load through
+``read_audio`` and ``audio_info``; ``write`` writes 16-bit PCM wav through
+``write_wav``; ``resample`` goes through scipy's polyphase filter
+(``ops/resample.py``).
 """
 
 from __future__ import annotations
 
-import dataclasses
-import os
-import struct
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
+from .data.audio_io import audio_info, read_audio, write_wav
 from .ops.loudness import integrated_loudness
 from .ops.resample import resample_poly_np
 
 GAIN_FACTOR = np.log(10) / 20
 """Multiply gain in dB by this to get the natural-log gain factor."""
-
-
-@dataclasses.dataclass
-class WavInfo:
-    sample_rate: int
-    num_channels: int
-    num_frames: int
-    bit_depth: int
-    audio_format: int
-
-    @property
-    def duration(self) -> float:
-        return self.num_frames / self.sample_rate
-
-
-def _parse_wav_header(f) -> Tuple[WavInfo, int, int]:
-    """RIFF/WAVE chunks -> (info, data offset, data size)."""
-    riff = f.read(12)
-    if len(riff) < 12 or riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
-        raise ValueError("not a RIFF/WAVE file")
-    fmt = data_offset = data_size = None
-    while True:
-        hdr = f.read(8)
-        if len(hdr) < 8:
-            break
-        cid, size = hdr[:4], struct.unpack("<I", hdr[4:])[0]
-        if cid == b"fmt ":
-            fmt = f.read(size)
-            if size % 2:
-                f.read(1)
-        elif cid == b"data":
-            data_offset, data_size = f.tell(), size
-            f.seek(size + (size % 2), os.SEEK_CUR)
-        else:
-            f.seek(size + (size % 2), os.SEEK_CUR)
-        if fmt is not None and data_offset is not None:
-            break
-    if fmt is None or data_offset is None:
-        raise ValueError("missing fmt/data chunk")
-    audio_format, channels, sample_rate = struct.unpack("<HHI", fmt[:8])
-    bits = struct.unpack("<H", fmt[14:16])[0]
-    if audio_format == 0xFFFE and len(fmt) >= 40:  # WAVE_FORMAT_EXTENSIBLE
-        audio_format = struct.unpack("<H", fmt[24:26])[0]
-    frame_bytes = channels * (bits // 8)
-    frames = data_size // frame_bytes if frame_bytes else 0
-    return (WavInfo(sample_rate, channels, frames, bits, audio_format),
-            data_offset, data_size)
-
-
-def wav_info(path) -> WavInfo:
-    with open(path, "rb") as f:
-        return _parse_wav_header(f)[0]
-
-
-def read_wav(path, offset: float = 0.0,
-             duration: Optional[float] = None) -> Tuple[np.ndarray, int]:
-    """A wav file's excerpt -> ((C, T) float32 in [-1, 1], sample rate). PCM
-    8/16/24/32-bit or float; seeks to ``offset`` seconds and reads
-    ``duration`` seconds (to the end for None)."""
-    with open(path, "rb") as f:
-        info, data_offset, _ = _parse_wav_header(f)
-        frame_bytes = (info.bit_depth // 8) * info.num_channels
-        start = int(round(offset * info.sample_rate))
-        n = (info.num_frames - start if duration is None
-             else int(round(duration * info.sample_rate)))
-        n = max(0, min(n, info.num_frames - start))
-        f.seek(data_offset + start * frame_bytes)
-        raw = f.read(n * frame_bytes)
-    n_read = len(raw) // frame_bytes
-    count = n_read * info.num_channels
-    if info.audio_format == 1:
-        if info.bit_depth == 16:
-            data = np.frombuffer(raw, "<i2", count).astype(np.float32) / 32768.0
-        elif info.bit_depth == 32:
-            data = np.frombuffer(raw, "<i4", count).astype(np.float32) / 2147483648.0
-        elif info.bit_depth == 24:
-            b = np.frombuffer(raw, np.uint8, count * 3).reshape(-1, 3).astype(np.int32)
-            vals = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
-            vals = np.where(vals >= 1 << 23, vals - (1 << 24), vals)
-            data = vals.astype(np.float32) / 8388608.0
-        elif info.bit_depth == 8:
-            data = (np.frombuffer(raw, np.uint8, count).astype(np.float32)
-                    - 128.0) / 128.0
-        else:
-            raise ValueError(f"unsupported PCM bit depth {info.bit_depth}")
-    elif info.audio_format == 3:
-        dtype = "<f4" if info.bit_depth == 32 else "<f8"
-        data = np.frombuffer(raw, dtype, count).astype(np.float32)
-    else:
-        raise ValueError(f"unsupported WAV format {info.audio_format}")
-    return data.reshape(n_read, info.num_channels).T.copy(), info.sample_rate
 
 
 def random_state(state) -> np.random.RandomState:
@@ -173,7 +81,7 @@ class Signal:
                 duration: Optional[float] = None, state=None) -> "Signal":
         """An excerpt of ``duration`` seconds at ``offset``, or at an offset
         drawn uniformly from ``state`` over the file."""
-        total = wav_info(path).duration
+        total = audio_info(path).duration
         if duration is None:
             duration = total
         state = random_state(state)
@@ -247,19 +155,15 @@ class Signal:
     @classmethod
     def load(cls, path, offset: float = 0.0,
              duration: Optional[float] = None) -> "Signal":
-        """A wav file (or ``duration`` seconds of it from ``offset``) as
-        float32 in [-1, 1]."""
-        data, sr = read_wav(path, offset=offset, duration=duration)
+        """An audio file of any supported format (or ``duration`` seconds of
+        it from ``offset``) as float32 in [-1, 1]."""
+        data, sr = read_audio(path, offset=offset, duration=duration)
         return cls(data[None], sr, {"path": str(path), "offset": offset,
                                     "duration": duration})
 
     def write(self, path) -> "Signal":
-        """Write the first batch item as 16-bit PCM."""
-        from scipy.io import wavfile
-
-        frames = np.clip(np.asarray(self.audio_data[0], np.float32), -1.0, 1.0)
-        pcm = np.round(frames * 32767.0).astype("<i2")
-        wavfile.write(path, self.sample_rate, pcm.T)
+        """Write the first batch item as a 16-bit PCM wav."""
+        write_wav(path, np.asarray(self.audio_data[0]), self.sample_rate)
         return self
 
 

@@ -467,7 +467,7 @@ def model_config(cfg: Config) -> ModelConfig:
     if unknown:
         raise NotImplementedError(
             f"DAC_VRVQ keys not ported: {['DAC_VRVQ.' + k for k in unknown]} "
-            "(ROADMAP Queue A item 6)")
+            "(ROADMAP Queue A)")
     for key in ("encoder_rates", "decoder_rates"):
         if key in kw:
             kw[key] = tuple(kw[key])

@@ -1,69 +1,26 @@
 """Reproducible audio excerpts for training.
 
 Counterpart of ``vrvq_tpu/data/loaders.py`` (itself audiotools' loader):
-``AudioLoader`` scans source folders into per-source file lists and a
-shuffled flat index; ``AudioDataset[idx]`` seeds a ``numpy`` RandomState
-with ``idx`` and draws from it in the JAX package's order (the item, the
-excerpt's offset, the transform's parameters), so both packages give the
-same excerpt for the same index. An unreadable file gives silence, with one
-warning per path. Wav only; the aligned multi-loader mode is not ported.
+``AudioLoader`` scans source folders (every format of
+``audio_io.AUDIO_EXTENSIONS``: wav, flac, mp3, mp4, m4a) into per-source file
+lists and a shuffled flat index; ``AudioDataset[idx]`` seeds a ``numpy``
+RandomState with ``idx`` and draws from it in the JAX package's order (the
+item, the excerpt's offset, the transform's parameters), so both packages
+give the same excerpt for the same index. An unreadable file, or one with no
+decoder on this machine (``UnsupportedFormatError``), gives silence, with
+one warning per path. The aligned multi-loader mode is not ported.
 """
 
 from __future__ import annotations
 
-import csv
 import struct
 import warnings
-from pathlib import Path
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from ..audio import Signal, random_state
-
-AUDIO_EXTENSIONS = [".wav"]
-
-
-def find_audio(folder, ext: Optional[List[str]] = None) -> List[Path]:
-    """Audio files under ``folder`` (recursive), sorted."""
-    ext = ext or AUDIO_EXTENSIONS
-    folder = Path(folder)
-    if folder.is_file() and folder.suffix.lower() in ext:
-        return [folder]
-    files = []
-    for e in ext:
-        files.extend(folder.rglob(f"*{e}"))
-    return sorted(set(files))
-
-
-def read_sources(sources: List[str], remove_empty: bool = True,
-                 relative_path: str = "",
-                 ext: Optional[List[str]] = None) -> List[List[Dict]]:
-    """One sorted list of ``{"path": ...}`` per source: a folder (scanned
-    recursively) or a csv with a ``path`` column."""
-    files = []
-    relative_path = Path(relative_path)
-    for source in map(str, sources):
-        found = []
-        if source.endswith(".csv"):
-            with open(source) as f:
-                for row in csv.DictReader(f):
-                    if remove_empty and row.get("path", "") == "":
-                        continue
-                    if row.get("path"):
-                        row["path"] = str(relative_path / row["path"])
-                    found.append(row)
-        else:
-            found = [{"path": str(relative_path / p)}
-                     for p in find_audio(source, ext=ext)]
-        files.append(sorted(found, key=lambda x: x["path"]))
-    return files
-
-
-def choose_from_list_of_lists(state, list_of_lists, p=None):
-    source_idx = state.choice(len(list_of_lists), p=p)
-    item_idx = state.randint(len(list_of_lists[source_idx]))
-    return list_of_lists[source_idx][item_idx], source_idx, item_idx
+from .audio_io import AUDIO_EXTENSIONS, choose_from_list_of_lists, read_sources
 
 
 class AudioLoader:
@@ -100,7 +57,7 @@ class AudioLoader:
                 return Signal.load(path)
             return Signal.salient_excerpt(path, duration=duration, state=state,
                                           loudness_cutoff=loudness_cutoff)
-        except (OSError, ValueError, struct.error) as exc:
+        except (OSError, EOFError, ValueError, struct.error) as exc:
             if str(path) not in self._warned:
                 self._warned.add(str(path))
                 warnings.warn(

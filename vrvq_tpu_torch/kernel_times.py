@@ -91,7 +91,8 @@ def rvq_bound(frames: int, n_q: int, d_model: int, d_code: int, k: int) -> dict:
 @contextlib.contextmanager
 def snake_census(*models, by_mode: bool = False):
     """While open, counts the input shapes of every ``Snake1d`` call in
-    ``models``: yields a Counter of shape -> calls, or with ``by_mode`` of
+    ``models``, or with no models in whichever model runs (a CLI that builds
+    its own): yields a Counter of shape -> calls, or with ``by_mode`` of
     (mode, shape) -> calls, the mode named as ``ops.snake.mode_name``."""
     from .nn.layers import Snake1d
     from .ops.snake import mode_name
@@ -99,15 +100,20 @@ def snake_census(*models, by_mode: bool = False):
     census = collections.Counter()
 
     def count(module, args):
+        if not isinstance(module, Snake1d):
+            return
         shape = tuple(args[0].shape)
         if by_mode:
             census[mode_name(args[0].dtype, module.approx), shape] += 1
         else:
             census[shape] += 1
 
-    hooks = [m.register_forward_pre_hook(count)
-             for model in models for m in model.modules()
-             if isinstance(m, Snake1d)]
+    if models:
+        hooks = [m.register_forward_pre_hook(count)
+                 for model in models for m in model.modules()
+                 if isinstance(m, Snake1d)]
+    else:
+        hooks = [torch.nn.modules.module.register_module_forward_pre_hook(count)]
     try:
         yield census
     finally:
