@@ -2,7 +2,7 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It
-builds the kernels (one ``nvcc`` call), then runs fourteen phases and prints
+builds the kernels (one ``nvcc`` call), then runs fifteen phases and prints
 one line for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
@@ -96,6 +96,27 @@ one line for each:
            inference CLI's level sweep of one 1 s example from the first
            run's last checkpoint; K2's polynomial forward and backward
            against their plain versions over the accumulated step's census;
+  trainer_io the native I/O library (built with ``g++``): the eval phase's wav,
+           LPC flac and fixed-subframe flac clips read natively and by the
+           plain readers (bit for bit; host ms per second of audio of each),
+           the native loudness of their 0.38 s excerpts against the numpy
+           meter (ms per excerpt); the serve phase's range-coded .dac and the
+           pool's packets through the C++ and the Python range coder (byte
+           for byte; host ms per window of each); ``train()`` of the
+           flagship with MSD (``Discriminator.rates: [1, 2]``) for 2 steps
+           at batch 16 x 0.38 s on 32 seeded 1 s clips, as LPC flac and as
+           wav of the same samples, each loaded serially and by 4 prefetching
+           threads (``data_ms`` of the four runs), with samples of two
+           ``val_idx`` items at every step: the prefetched batches equal
+           ``load_batch``'s, the native counters rise, every discriminator
+           parameter gets a non-zero gradient, the other three runs agree
+           with the prefetched flac run within the parallel phase's bars,
+           the event file holds the scalars, audio and images, and K2's
+           forward launches equal the run's Snake calls and its backward
+           launches the train census's; ``cli.export_torch`` of the run's
+           checkpoint, whose ``weights.pth`` loads back through
+           ``torch_ckpt`` to a decode of a 1 s clip equal to the trained
+           model's bit for bit;
   parallel the flagship's step at batch 16 x 0.38 s (``vrvq_a2.yml``, MPD +
            MRD, the same pinned draws of the global batch throughout) in one
            process, the reference, and again (the card's spread between two
@@ -132,6 +153,8 @@ launches, and over the pool's census; K2's exact bfloat16 mode over the
 bfloat16 encoder's census; K1 at one window's 72 frames and at a
 pool batch's 576, and at 28 stages; K2's forward and backward over the train
 step's census, in the exact and in the polynomial mode; K2's forward and
+backward in the trainer_io phase's run (the forward timed over that run's
+census, the backward at the train step's); K2's forward and
 backward in the parallel phase's one-rank steps (the train step's census)
 and in its ranks' steps (a rank's census), K1 and K2 in its pool over the
 cards, timed at the pool's census; K2 over the evaluator's census, exact and
@@ -147,14 +170,17 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import importlib.util
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -166,17 +192,24 @@ from vrvq_tpu_torch import kernel_times as kt
 from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
 from vrvq_tpu_torch.cli import evaluate as cli_eval
+from vrvq_tpu_torch.cli import export_torch as cli_export
 from vrvq_tpu_torch.cli import stream_demo as cli_stream
 from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config, model_config, parse_args
-from vrvq_tpu_torch.data import audio_io, ffdecode, mpeg
+from vrvq_tpu_torch.data import audio_io, ffdecode, flac_py, mpeg
 from vrvq_tpu_torch.kernels import build
 from vrvq_tpu_torch.metrics import si_sdr
+from vrvq_tpu_torch.models import codec as codec_mod
 from vrvq_tpu_torch.models.importance import ImportanceSubnet
+from vrvq_tpu_torch.native import io as native_io
+from vrvq_tpu_torch.ops import rangecoder
+from vrvq_tpu_torch.ops.loudness import integrated_loudness
 from vrvq_tpu_torch.models.quantize import VBRResidualVectorQuantize
 from vrvq_tpu_torch.ops import rvq_kernel as rvq_ops
 from vrvq_tpu_torch.ops import snake as snake_ops
 from vrvq_tpu_torch.parallel import dist as pdist
 from vrvq_tpu_torch.train import trainer
+from vrvq_tpu_torch.train.checkpoint import load_gen_params
+from vrvq_tpu_torch.train.tracker import read_events
 
 SEED = 0
 DEVICE = "cuda"
@@ -227,6 +260,12 @@ RVQ_WIDE_SHAPES = [(8, 1024, 1024, d) for d in (1, 2, 3, 16, 32)] + [
     (8, 1000, 1000, 8), (8, 6, 6, 8)]
 # the parallel phase: the flagship's step at batch 16 x 0.38 s in one rank
 # and in two (2 x 8 rows), remat against the plain step
+# the trainer_io phase: train() with MSD, the prefetcher and the samples
+IO_STEPS = 2
+IO_WORKERS = 4
+IO_RATES = [1, 2]
+IO_VAL_IDX = [0, 1]
+IO_EXCERPT_S = 0.38  # loudness is measured on the loader's excerpts
 PAR_STEPS = 4  # step 1 compared, steps 2-4 timed
 PAR_LOSS_RTOL = 1e-4  # two ranks against one: every loss and grad norm
 PAR_UPDATE_REL_L2 = 1e-3  # the update: each network's gradient, the parameters
@@ -1400,7 +1439,7 @@ def train_phase(gen):
           snake_backward_shapes=bwd)
     return {"snake_train": {**fwd_row, "launches": launches.get("snake", 0)},
             "snake_backward": {**bwd_row, "launches": launches["snake_backward"]},
-            "per_step": per_step}
+            "per_step": per_step, "census": census}
 
 
 def start_cli(module: str, args):
@@ -1564,6 +1603,302 @@ def cli_phase(gen):
             "snake_approx_backward": {**bwd_row,
                                       "launches": launches["snake_approx_backward"]},
             "per_step": {"forward": sum(fwd.values()), "backward": sum(bwd.values())}}
+
+
+def write_flac_clip(job) -> str:
+    """A process-pool job: ``(path, seconds, seed, kind)``'s seeded 44.1 kHz
+    clip (``port.synthetic_clip``) as 16-bit flac with ``kind`` subframes of
+    order 2, the samples that ``Signal.write`` puts in a wav of that clip."""
+    path, seconds, seed, kind = job
+    x = port.synthetic_clip(seconds, 44100, seed)[0]
+    pcm = np.round(np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int64)
+    tests_module("flac_encoder").write_flac(Path(path), pcm, 44100, block_size=4096,
+                                            subframe_kind=kind, order=2)
+    return path
+
+
+def host_ms(fn, *args, repeat: int = 3):
+    """The least host ms of ``repeat`` calls of ``fn(*args)``, and its result."""
+    best, out = float("inf"), None
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        best = min(best, 1e3 * (time.perf_counter() - t0))
+    return best, out
+
+
+def reader_rows(clips):
+    """Each of the eval phase's clips (wav, LPC flac, fixed flac) read natively
+    and by the plain reader, bit for bit, with host ms per second of audio;
+    the native loudness of its 0.38 s excerpts against the numpy meter, ms per
+    excerpt."""
+    rows, n_calls = {}, dict(native_io.IO_CALLS)
+    for name, path in clips.items():
+        kind = "wav" if path.suffix == ".wav" else "flac"
+        plain = (audio_io.read_wav_np if kind == "wav" else flac_py.read_flac)
+        native_ms, (got, sr) = host_ms(getattr(native_io, f"read_{kind}"), path)
+        plain_ms, (want, _) = host_ms(plain, path, repeat=1 if kind == "flac" else 3)
+        assert np.array_equal(got, want), name
+        seconds = got.shape[-1] / sr
+        rows[name] = {"native_ms_per_audio_s": native_ms / seconds,
+                      "plain_ms_per_audio_s": plain_ms / seconds, "bit_exact": True}
+    for kind in ("wav", "flac"):
+        assert native_io.IO_CALLS[f"{kind}_native"] > n_calls.get(f"{kind}_native", 0)
+    x = audio_io.read_wav(clips["wav"])[0]
+    n = int(IO_EXCERPT_S * 44100)
+    excerpts = [x[:, i * n:(i + 1) * n] for i in range(x.shape[-1] // n)]
+    native_ms, native = host_ms(lambda: [native_io.loudness(e, 44100) for e in excerpts])
+    plain_ms, plain = host_ms(lambda: [float(integrated_loudness(
+        e[None].astype(np.float64), 44100)[0]) for e in excerpts])
+    diff = max(abs(a - b) for a, b in zip(native, plain))
+    assert diff <= 1e-9, (native, plain)
+    rows["loudness"] = {"excerpts": len(excerpts), "excerpt_s": IO_EXCERPT_S,
+                        "native_ms_per_excerpt": native_ms / len(excerpts),
+                        "plain_ms_per_excerpt": plain_ms / len(excerpts),
+                        "max_abs_diff_lu": diff, "native_lufs": native}
+    return rows
+
+
+@contextlib.contextmanager
+def python_range_coder():
+    """While open, the entropy ``.dac`` and ``PacketCodec`` code with the
+    Python range coder (the plain version) in place of the native one."""
+    saved = (codec_mod.encode_adaptive, codec_mod.decode_adaptive,
+             streaming.AdaptiveCoder)
+    codec_mod.encode_adaptive = functools.partial(rangecoder.encode_adaptive,
+                                                  backend="python")
+    codec_mod.decode_adaptive = functools.partial(rangecoder.decode_adaptive,
+                                                  backend="python")
+    streaming.AdaptiveCoder = functools.partial(rangecoder.AdaptiveCoder,
+                                                backend="python")
+    try:
+        yield
+    finally:
+        codec_mod.encode_adaptive, codec_mod.decode_adaptive, \
+            streaming.AdaptiveCoder = saved
+
+
+def range_code(serve_dac, chunks, folder: Path, codebook_size: int, n_codebooks: int):
+    """The serve phase's ``.dac`` range-coded and read back, and the pool's
+    chunks as ``PacketCodec`` packets, stream by stream: the bytes, and
+    host ms of each part."""
+    t0 = time.perf_counter()
+    path = serve_dac.save(folder / "rc.dac", entropy=True, codebook_size=codebook_size)
+    t1 = time.perf_counter()
+    back = port.DACFile.load(path)
+    t2 = time.perf_counter()
+    assert np.array_equal(back.vbr_counts, serve_dac.vbr_counts)
+    packets = []
+    for sid in sorted({sid for sid, _, _ in chunks}):
+        tx = streaming.PacketCodec(n_codebooks, codebook_size)
+        rx = streaming.PacketCodec(n_codebooks, codebook_size)
+        for s, codes, cnt in chunks:
+            if s == sid:
+                packets.append(tx.pack(codes, cnt))
+                assert np.array_equal(rx.unpack(packets[-1])[1], cnt)
+    t3 = time.perf_counter()
+    return {"dac": path.read_bytes(), "packets": packets,
+            "dac_save_ms": 1e3 * (t1 - t0), "dac_load_ms": 1e3 * (t2 - t1),
+            "packets_ms": 1e3 * (t3 - t2)}
+
+
+def range_coder_row(serve_dac, chunks, folder: Path, cfg):
+    """Both backends on the same codes: byte-identical files and packets,
+    host ms per window of each."""
+    calls = native_io.IO_CALLS["rc_encode_native"]
+    native = range_code(serve_dac, chunks, folder, cfg.codebook_size, cfg.n_codebooks)
+    assert native_io.IO_CALLS["rc_encode_native"] > calls
+    with python_range_coder():
+        plain = range_code(serve_dac, chunks, folder, cfg.codebook_size, cfg.n_codebooks)
+    assert native["dac"] == plain["dac"] and native["packets"] == plain["packets"]
+    windows = -(-serve_dac.codes.shape[-1] // serve_dac.chunk_length)
+    per = {}
+    for name, out in (("native", native), ("python", plain)):
+        per[name] = {"dac_ms_per_window": (out["dac_save_ms"] + out["dac_load_ms"]) / windows,
+                     "packet_ms_per_window": out["packets_ms"] / len(chunks)}
+    return {"dac_windows": windows, "dac_bytes": len(native["dac"]),
+            "packets": len(chunks), "packet_bytes": sum(map(len, native["packets"])),
+            "byte_identical": True, **per}
+
+
+def trainer_io_run(clips: Path, save: Path, workers: int):
+    """``train()`` of the flagship with MSD on ``clips``: ``IO_STEPS`` steps at
+    batch 16 x 0.38 s, ``workers`` loader threads (0: serial), samples of
+    ``IO_VAL_IDX`` at every step. Returns the run, its kernel launches and
+    its Snake census (every call, by mode)."""
+    cfg = train_config(clips)
+    cfg.update({"Discriminator.rates": IO_RATES, "num_workers": workers,
+                "sample_freq": 1, "val_idx": IO_VAL_IDX, "num_iters": IO_STEPS})
+    with kt.snake_census(by_mode=True) as census:
+        build.LAUNCHES.clear()
+        run = trainer.train(cfg, str(save), device=DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    return run, launches, census
+
+
+def msd_host_syncs(disc) -> dict:
+    """Each MSD's forward (with its in-graph resample) at a train batch, run
+    with CUDA's sync debug mode set to error: an operation that makes the
+    host wait for the card raises. The taps were built on the card by the
+    run's steps. Returns the warnings the whole discriminator's forward
+    raises in warn mode, by message (reported, not held to a bar)."""
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    x = torch.randn(TRAIN_BATCH, 1, int(TRAIN_DURATION_S * 44100), device=DEVICE,
+                    generator=gen)
+    msds = [n for n in disc.names if n.startswith("msd")]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name in msds:
+            getattr(disc, name)(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            disc(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return {"msd_forward_syncs": 0, "checked": msds,
+            "discriminator_forward_sync_warnings": dict(collections.Counter(
+                str(w.message).splitlines()[0][:120] for w in caught))}
+
+
+def trainer_io_phase(gen, serve_dac, chunks, train_rows):
+    """See the module docstring. Returns K2's forward row over the prefetched
+    flac run's census and its backward launches."""
+    cfg = port.FLAGSHIP
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        flacs, wavs, evals = tmp / "flac", tmp / "wav", tmp / "eval"
+        flacs.mkdir()
+        evals.mkdir()
+        jobs = [(str(flacs / f"clip_{i:02d}.flac"), 1.0, SEED + 100 + i, "lpc")
+                for i in range(TRAIN_WAVS)]
+        # the eval phase's wav and flac clips (and its fixed-subframe flac)
+        jobs += [(str(evals / "lpc.flac"), EVAL_CLIP_S, SEED + 201, "lpc"),
+                 (str(evals / "fixed.flac"), EVAL_CLIP_S, SEED + 201, "fixed")]
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+            pending = pool.map_async(write_flac_clip, jobs)
+            write_wavs(wavs)
+            audio_io.write_wav(evals / "clip.wav",
+                               port.synthetic_clip(EVAL_CLIP_S, 44100, SEED + 200)[0], 44100)
+            coder = range_coder_row(serve_dac, chunks, tmp, cfg)
+            pending.get(timeout=300)
+        readers = reader_rows({"wav": evals / "clip.wav", "flac_lpc": evals / "lpc.flac",
+                               "flac_fixed": evals / "fixed.flac"})
+
+        io_before = dict(native_io.IO_CALLS)
+        runs, data_ms = {}, {}
+        for fmt, folder in (("flac", flacs), ("wav", wavs)):
+            for workers in (0, IO_WORKERS):
+                run, launches, census = trainer_io_run(folder, tmp / f"{fmt}{workers}",
+                                                       workers)
+                data_ms[f"{fmt}_{'prefetched' if workers else 'serial'}"] = run.data_ms
+                if not workers:  # what data_ms holds: the load, then the transforms
+                    load_ms, batch = host_ms(trainer.load_batch, run.train_data, 1,
+                                             TRAIN_BATCH)
+                    data_ms[f"{fmt}_load_step1_ms"] = load_ms
+                    data_ms[f"{fmt}_transform_step1_ms"] = host_ms(
+                        lambda: (trainer.prepare_audio(run.train_data, batch, DEVICE),
+                                 torch.cuda.synchronize()))[0]
+                if (fmt, workers) == ("flac", IO_WORKERS):
+                    io_launches, io_census, save = launches, census, tmp / f"{fmt}{workers}"
+                runs[fmt, workers] = run
+                if (fmt, workers) != ("flac", IO_WORKERS):
+                    continue
+                # the prefetcher's batches are load_batch's
+                with trainer.BatchPrefetcher(run.train_data, TRAIN_BATCH, 0,
+                                             IO_WORKERS) as batches:
+                    for step in range(IO_STEPS):
+                        got = next(batches)[1]["signal"].audio_data
+                        want = trainer.load_batch(run.train_data, step, TRAIN_BATCH)
+                        assert np.array_equal(got, want["signal"].audio_data), step
+        io_calls = {k: native_io.IO_CALLS[k] - io_before.get(k, 0)
+                    for k in ("flac_native", "wav_native", "loudness_native")}
+        assert min(io_calls.values()) > 0, io_calls
+
+        run = runs["flac", IO_WORKERS]
+        ts = run.train_state
+        assert ts.step == IO_STEPS
+        disc = ts.discriminator
+        assert [n for n in disc.names if n.startswith("msd")] == ["msd_1", "msd_2"]
+        no_grad = [n for n, p in disc.named_parameters()
+                   if p.grad is None or not bool(torch.count_nonzero(p.grad))]
+        assert not no_grad, f"discriminator parameters without a gradient: {no_grad}"
+        msd_syncs = msd_host_syncs(disc)
+        # the same run loaded serially, and both runs on the wav corpus of the
+        # same samples: the losses, each network's gradients and the
+        # parameters within the card's spread (agreement's bars)
+        ref, agree = snapshot(ts), {}
+        for key in (("flac", 0), ("wav", 0), ("wav", IO_WORKERS)):
+            other = runs.pop(key)
+            err = max(loss_rel_err(m, want) for m, want in zip(other.metrics, run.metrics))
+            a = agreement(snapshot(other.train_state), ref, ref["params"])
+            assert err <= PAR_LOSS_RTOL, (key, err, other.metrics, run.metrics)
+            assert max(a["grad_rel_l2"].values()) <= PAR_UPDATE_REL_L2, (key, a)
+            assert a["param_rel_l2"] <= PAR_UPDATE_REL_L2, (key, a)
+            agree[f"{key[0]}_{'prefetched' if key[1] else 'serial'}"] = {
+                "max_loss_rel_err": err, "grad_rel_l2": a["grad_rel_l2"],
+                "param_rel_l2": a["param_rel_l2"]}
+            del other
+        del ref
+        torch.cuda.empty_cache()
+
+        # K2: every Snake call launched, the backward at the train census
+        per_step = train_rows["per_step"]
+        exact = of_mode(io_census, "snake")
+        assert {m for m, _ in io_census} == {"snake"}, io_census
+        assert io_launches.get("snake") == sum(exact.values()), (io_launches, exact)
+        assert io_launches.get("snake_backward") == IO_STEPS * per_step, io_launches
+        assert io_launches.get("rvq", 0) == 0, io_launches
+
+        events = read_events(save / "logs")
+        kinds = {tag: sorted({k for _, k, _ in vals}) for tag, vals in events.items()}
+        for tag, kind in (("loss/train", "simple_value"), ("mel/loss/val", "simple_value"),
+                          ("adv/disc_loss/train", "simple_value")):
+            assert kinds.get(tag) == [kind], (tag, kinds)
+        for i in range(len(IO_VAL_IDX)):
+            assert kinds.get(f"signal/sample_{i}.wav") == ["audio"], kinds
+            assert [s for s, _, _ in events[f"recons/sample_{i}.wav"]] == list(range(IO_STEPS))
+            assert kinds.get(f"recons/sample_{i}.wav") == ["audio"], kinds
+            assert kinds.get(f"imp_map/sample_{i}") == ["image"], kinds
+
+        # export the run's generator; the file loads back to the same decode
+        weights = tmp / "weights.pth"
+        t0 = time.perf_counter()
+        cli_export.main(["--args.load", FLAGSHIP_YAML, "--ckpt_dir", str(save),
+                         "--tag", "latest", "--out", str(weights)])
+        export_s = time.perf_counter() - t0
+        load_cfg = parse_args(["--args.load", FLAGSHIP_YAML, "--torch_ckpt", str(weights)],
+                              base_dir=REPO)
+        back = load_gen_params(load_cfg, port.DAC_VRVQ(model_config(load_cfg)), DEVICE)
+        clip = torch.from_numpy(port.synthetic_clip(1.0, 44100, SEED + 300)).to(DEVICE)
+        with torch.inference_mode():
+            want = ts.generator.eval()(clip, level=1.0)["audio"]
+            got = back.eval()(clip, level=1.0)["audio"]
+        assert torch.equal(got, want), float((got - want).abs().max())
+        weights_mb = weights.stat().st_size / 2 ** 20
+        del back, run, ts, disc, runs
+    torch.cuda.empty_cache()
+    row = snake_mode_row(io_census, "snake", gen, train_rows["census"])
+    phase("trainer_io", readers=readers, range_coder=coder,
+          train={"steps": IO_STEPS, "batch": TRAIN_BATCH, "duration_s": TRAIN_DURATION_S,
+                 "rates": IO_RATES, "workers": IO_WORKERS, "val_idx": IO_VAL_IDX,
+                 "corpus": f"{TRAIN_WAVS} seeded 1 s clips, LPC flac and 16-bit wav "
+                           "of the same samples",
+                 "data_ms": data_ms, "agreement_with_flac_prefetched": agree,
+                 "native_io_calls": io_calls, "launches": io_launches,
+                 "host_syncs": msd_syncs,
+                 "snake_forward": row,
+                 "event_tags": {tag: kinds[tag] for tag in sorted(kinds)}},
+          export={"weights_mib": weights_mb, "cli_s": export_s,
+                  "decode_bit_exact": True})
+    return {"forward": row, "backward_launches": io_launches["snake_backward"]}
 
 
 def params_of(ts):
@@ -2010,6 +2345,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_rows = cli_phase(gen)
     torch.cuda.empty_cache()
+    io_rows = trainer_io_phase(gen, serve_dac, pool["chunks"], train_rows)
+    torch.cuda.empty_cache()
     par = parallel_phase(gen, pool)
 
     source = {"source": "vrvq_tpu_torch/kernels/csrc/snake.cu",
@@ -2089,6 +2426,20 @@ def main() -> int:
                        f"{cli_rows['snake_approx_backward']['shapes']} shapes"),
     ]
     kernels += [
+        kernel_row("snake_trainer_io", io_rows["forward"], **source,
+                   per=f"exact float32 forward, the trainer_io phase's train() with MSD "
+                       f"({IO_STEPS} steps at batch 16 x 0.38 s on flac, prefetched, "
+                       f"samples of {len(IO_VAL_IDX)} items every step, two "
+                       f"validations): {io_rows['forward']['launches']} launches over "
+                       f"{io_rows['forward']['shapes']} shapes"),
+        kernel_row("snake_backward_trainer_io",
+                   {**train_rows["snake_backward"],
+                    "launches": io_rows["backward_launches"]},
+                   source="vrvq_tpu_torch/kernels/csrc/snake.cu",
+                   replaces="vrvq_tpu/ops/snake.py:19 (no Pallas backward: "
+                            "XLA's autodiff of snake_reference)",
+                   per=f"the trainer_io phase's {IO_STEPS} steps (the train step's "
+                       f"census)"),
         kernel_row("snake_parallel", {**train_rows["snake_train"],
                                       "launches": par["train"]["snake"]}, **source,
                    per="exact float32 forward, the parallel phase's one-rank and "

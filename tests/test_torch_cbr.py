@@ -23,7 +23,6 @@ import jax.numpy as jnp
 from vrvq_tpu.audio import Signal as JaxSignal
 from vrvq_tpu.infer.codec_api import CodecProcessor as JaxProcessor
 from vrvq_tpu.models import DAC_VRVQ as JaxDAC, Discriminator as JaxDisc
-from vrvq_tpu.native.io import wavio
 from vrvq_tpu.train import loop as jloop
 from vrvq_tpu.train.checkpoint import export_torch_state_dict
 from vrvq_tpu.train.state import TrainState as JState, make_optimizer as j_make_optimizer
@@ -33,7 +32,7 @@ from vrvq_tpu_torch.convert import (discriminator_state_dict_from_jax,
 from vrvq_tpu_torch.models.discriminator import Discriminator
 from vrvq_tpu_torch.train import loop
 from vrvq_tpu_torch.train.state import TrainState, make_optimizer
-from tests.test_torch_support import JAX_CFG, jitter, jnp_tree
+from tests.test_torch_support import JAX_CFG, jitter, jnp_tree, own_loudness_meters
 from tests.test_torch_train_step import (FFTS, LAMBDAS, PERIODS, SMALL, _audio,
                                          _clipped, _losses, _rel_l2)
 
@@ -116,8 +115,8 @@ def test_reference_layout_loads_a_cbr_tree(pair):
 @pytest.mark.parametrize("case", [dict(n_quantizers=2, win_duration=0.5),
                                   dict(n_quantizers=4, win_duration=None)],
                          ids=["chunked-nq2", "oneshot-nq4"])
-def test_codec_processor_cbr_matches_jax(pair, case, monkeypatch):
-    monkeypatch.setattr(wavio, "available", lambda: False)  # one loudness meter
+def test_codec_processor_cbr_matches_jax(pair, case):
+    own_loudness_meters()
     jm, params, tm = pair
     clip = port.synthetic_clip(1.3, 44100, 9)
     want = JaxProcessor(jm, jnp_tree(params)).compress(JaxSignal(clip, 44100), **case)

@@ -22,12 +22,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from vrvq_tpu import audio as jaudio
 from vrvq_tpu.config import Config as JaxConfig
 from vrvq_tpu.data import loaders as jloaders
 from vrvq_tpu.data import transforms as jtransforms
 from vrvq_tpu.models import DAC_VRVQ as JaxDAC
-from vrvq_tpu.ops.loudness import integrated_loudness
 from vrvq_tpu.train.checkpoint import export_torch_state_dict
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.cli import inference as cli_inference
@@ -39,7 +37,7 @@ from vrvq_tpu_torch.data import transforms as ttransforms
 from vrvq_tpu_torch.parallel import dist as pdist
 from vrvq_tpu_torch.train import checkpoint as ckpt
 from vrvq_tpu_torch.train import trainer
-from tests.test_torch_support import JAX_CFG, jitter
+from tests.test_torch_support import JAX_CFG, jitter, own_loudness_meters
 
 torch.set_num_threads(1)
 
@@ -243,12 +241,10 @@ def _volume_datasets(wavs, pkg_loaders, pkg_transforms, cfg):
 
 
 @pytest.mark.parametrize("db", [["const", -16], ["uniform", -30, -10]])
-def test_volume_norm_matches_jax(tiny, db, monkeypatch):
+def test_volume_norm_matches_jax(tiny, db):
     """conf/vrvq/vrvq_a2_lufs.yml's chain: the same gains (bit for bit) and
     the transformed batch within 1e-5."""
-    monkeypatch.setattr(jaudio.Signal, "loudness", lambda self, *a, **k: np.maximum(
-        integrated_loudness(np.asarray(self.audio_data, np.float64),
-                            self.sample_rate), -70.0).astype(np.float32))
+    own_loudness_meters()
     jds = _volume_datasets(tiny / "wavs", jloaders, jtransforms,
                            JaxConfig({"VolumeNorm.db": db}))
     tds = _volume_datasets(tiny / "wavs", tloaders, ttransforms,

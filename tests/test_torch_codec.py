@@ -1,8 +1,9 @@
 """The port's serving path against the JAX package's: compress, .dac, decompress.
 
 Both packages get the same jittered small model and the same seeded clip.
-Both measure loudness with the same numpy BS.1770 meter (the JAX Signal would
-otherwise take its C++ meter when that is built, whose last bits differ).
+Each measures loudness with its own meter of the same kind
+(``test_torch_support.own_loudness_meters``: JAX's C++ meter against the
+port's, or, without a compiler, JAX's numpy meter against the port's).
 ``compress`` through the fused quantizer must give identical codes and
 ``vbr_counts``; the same codes must give byte-identical ``.dac`` files; the
 decompressed audio must agree within rtol 1e-3 / atol 1e-4. Plus the import
@@ -23,10 +24,10 @@ import torch
 from vrvq_tpu.audio import Signal as JaxSignal
 from vrvq_tpu.infer.codec_api import CodecProcessor as JaxProcessor
 from vrvq_tpu.models import codec as jcodec
-from vrvq_tpu.native.io import wavio
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.models import codec as tcodec
-from tests.test_torch_support import jax_model_and_params, jnp_tree, port_model
+from tests.test_torch_support import (jax_model_and_params, jnp_tree, own_loudness_meters,
+                                       port_model)
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-3, 1e-4
@@ -41,8 +42,8 @@ def processors():
 
 
 @pytest.fixture(autouse=True)
-def numpy_meter(monkeypatch):
-    monkeypatch.setattr(wavio, "available", lambda: False)
+def own_meters():
+    own_loudness_meters()
 
 
 def _clip(seconds=2.5, seed=0):
@@ -212,6 +213,8 @@ BLOCKER = textwrap.dedent("""
         "data.audio_io", "data.flac_py", "data.mpeg", "data.ffdecode", "visqol",
         "losses.framewise", "cli.evaluate", "cli.stream_demo")}
     assert evaluation <= walked, sorted(evaluation - walked)
+    edge = {"vrvq_tpu_torch." + m for m in ("native", "native.io", "cli.export_torch")}
+    assert edge <= walked, sorted(edge - walked)
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -34,6 +34,10 @@ The model surface: K2's exact bfloat16 mode at every shape of the
 bfloat16-encoder profile and K1 on that profile's latents; ``DAC_MOE``'s
 kernel path against its plain path; the fused quantizer refusing mixed
 codebook widths.
+
+The trainer's edge: the native I/O library built on the card's machine
+(wav reader, loudness meter and range coder, its counters rising), and
+``train()`` with MSD and ``save_samples`` on the card by default.
 """
 
 import numpy as np
@@ -694,3 +698,73 @@ def test_eval_clis_default_to_the_card(cuda, tmp_path, monkeypatch):
     assert LAUNCHES["rvq"] > 0 and LAUNCHES["snake"] > 0, dict(LAUNCHES)
     assert res["samples"] == pcm.shape[-1]
     assert read_audio(tmp_path / "out.wav")[0].shape == pcm.shape
+
+
+def _small_train_cfg(wavs, **over):
+    """vrvq_a2.yml at small widths (MPD 2, one MRD of 512), 0.1 s clips."""
+    cfg = port.config.Config.load(port.config.FLAGSHIP_YAML,
+                                  base_dir=port.config.REPO).to_dict()
+    cfg.update({
+        "DAC_VRVQ.encoder_dim": 16, "DAC_VRVQ.encoder_rates": [2, 4, 8],
+        "DAC_VRVQ.decoder_dim": 128, "DAC_VRVQ.decoder_rates": [8, 4, 2],
+        "DAC_VRVQ.n_codebooks": 4, "DAC_VRVQ.codebook_size": 64,
+        "DAC_VRVQ.codebook_dim": 4, "Discriminator.periods": [2],
+        "Discriminator.fft_sizes": [512], "MultiScaleSTFTLoss.window_lengths": [512],
+        "MelSpectrogramLoss.n_mels": [40], "MelSpectrogramLoss.window_lengths": [512],
+        "MelSpectrogramLoss.mel_fmin": [0], "MelSpectrogramLoss.mel_fmax": [None],
+        "train/build_dataset.folders": {"music": [str(wavs)]},
+        "val/build_dataset.folders": {"music": [str(wavs)]},
+        "train/AudioDataset.duration": 0.1, "val/AudioDataset.duration": 0.1,
+        "val/AudioDataset.n_examples": 4, "batch_size": 4, "val_batch_size": 4,
+        "num_iters": 2, "valid_freq": 2, **over})
+    return cfg
+
+
+def test_native_io_runs_on_the_card_host(cuda, tmp_path):
+    """The native library builds on the card's machine and serves the wav
+    reader, the loudness meter and the range coder (its counters rise)."""
+    from vrvq_tpu_torch.data.audio_io import read_wav, read_wav_np
+    from vrvq_tpu_torch.native import io as native_io
+    from vrvq_tpu_torch.ops.rangecoder import AdaptiveCoder
+
+    assert native_io.library() is not None, native_io.reason()
+    before = dict(native_io.IO_CALLS)
+    sig = port.Signal(port.synthetic_clip(1.0, 44100, 3), 44100)
+    sig.write(tmp_path / "a.wav")
+    assert np.array_equal(read_wav(tmp_path / "a.wav")[0], read_wav_np(tmp_path / "a.wav")[0])
+    sig.loudness()
+    codes = np.random.RandomState(0).randint(0, 1024, 4096)
+    native, plain = AdaptiveCoder(1024, 1), AdaptiveCoder(1024, 1, backend="python")
+    assert native.backend == "native" and native.encode(codes) == plain.encode(codes)
+    for name in ("wav_native", "loudness_native", "rc_encode_native"):
+        assert native_io.IO_CALLS[name] > before.get(name, 0), name
+
+
+def test_msd_step_and_samples_default_to_the_card(cuda, tmp_path):
+    """``train()`` with no device: a small codec with MSD at rates 1 and 2
+    trains on ``cuda:0`` through K2 (forward and backward), every MSD
+    parameter gets a gradient, and ``save_samples`` writes audio and images
+    through ``torch.utils.tensorboard`` (or tensorboardX) on the card."""
+    from vrvq_tpu_torch.train.trainer import train
+    from vrvq_tpu_torch.train.tracker import read_events
+
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    for i in range(4):
+        port.Signal(port.synthetic_clip(1.0, 44100, 100 + i), 44100).write(
+            wavs / f"c{i}.wav")
+    LAUNCHES.clear()
+    state = train(_small_train_cfg(wavs, **{"Discriminator.rates": [1, 2],
+                                            "num_workers": 2, "sample_freq": 1,
+                                            "val_idx": [0, 1]}),
+                  str(tmp_path / "run"))
+    torch.cuda.synchronize()
+    assert state.device == torch.device("cuda")
+    assert LAUNCHES["snake"] > 0 and LAUNCHES["snake_backward"] > 0, dict(LAUNCHES)
+    msd = [(n, p) for n, p in state.train_state.discriminator.named_parameters()
+           if n.startswith("msd_")]
+    assert msd and all(p.is_cuda and bool(torch.count_nonzero(p.grad)) for _, p in msd)
+    events = read_events(tmp_path / "run" / "logs")
+    assert "loss/train" in events and "imp_map/sample_1" in events, sorted(events)
+    assert ("recons/sample_0.wav" in events
+            or (tmp_path / "run" / "logs" / "samples" / "recons_1_0.wav").exists())

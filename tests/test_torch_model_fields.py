@@ -27,14 +27,13 @@ from vrvq_tpu import nn as jnn
 from vrvq_tpu.audio import Signal as JaxSignal
 from vrvq_tpu.infer.codec_api import CodecProcessor as JaxProcessor
 from vrvq_tpu.models import DAC_MOE as JaxMOE, DAC_VRVQ as JaxDAC
-from vrvq_tpu.native.io import wavio
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.config import Config, model_config
 from vrvq_tpu_torch.convert import state_dict_from_jax
 from vrvq_tpu_torch.models.dac_moe import DAC_MOE
 from vrvq_tpu_torch.nn import layers as tnn
 from vrvq_tpu_torch.ops import rvq_kernel
-from tests.test_torch_support import JAX_CFG, jitter, jnp_tree
+from tests.test_torch_support import JAX_CFG, jitter, jnp_tree, own_loudness_meters
 
 torch.set_num_threads(1)
 
@@ -131,10 +130,10 @@ def test_from_codes_and_from_latents_match_jax(pair):
     assert torch.equal(part[2], enc["codes"][:, :2])
 
 
-def test_codec_processor_matches_jax(pair, monkeypatch):
+def test_codec_processor_matches_jax(pair):
     """``.dac`` codes of the module path, chunked, equal JAX's; the fused
     path serves uniform widths only."""
-    monkeypatch.setattr(wavio, "available", lambda: False)  # one loudness meter
+    own_loudness_meters()
     name, (jm, params, tm) = pair
     clip = port.synthetic_clip(1.3, 44100, 9)
     req = {"n_quantizers": 3} if name.startswith("moe") else _request(tm)

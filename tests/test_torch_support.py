@@ -16,8 +16,10 @@ import jax
 import jax.numpy as jnp
 
 from vrvq_tpu.models import DAC_VRVQ as JaxDAC
+from vrvq_tpu.native.io import wavio
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.convert import state_dict_from_jax
+from vrvq_tpu_torch.native import io as native_io
 
 JAX_CFG = dict(
     encoder_dim=16, encoder_rates=(2, 4, 8, 8), decoder_dim=128,
@@ -49,6 +51,17 @@ def jitter(params, seed: int):
         return x
 
     return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def own_loudness_meters() -> None:
+    """Each package measures loudness with its own meter of the same kind:
+    the JAX Signal with ``vrvq_tpu/native/io``'s C++ meter (built from the
+    JAX package's source by ``conftest.py``), the port with its own build of
+    its own copy; or, where no compiler is present, each with its numpy
+    meter. A mixed pair would compare a C++ meter with a numpy one, whose
+    last bits differ."""
+    assert wavio.available() == (native_io.library() is not None), (
+        wavio.available(), native_io.reason())
 
 
 def jax_model_and_params(seed: int = 0, **overrides):

@@ -53,7 +53,11 @@ def build_model(config: ModelConfig = FLAGSHIP, *,
                 seed: int = 0, model_class: type = DAC_VRVQ) -> DAC_VRVQ:
     """A codec (``DAC_VRVQ``, or ``model_class=DAC_MOE``) of ``config`` in
     eval mode on ``device``: with ``state_dict`` loaded (strict), else drawn
-    by ``init_params`` from ``seed``."""
+    by ``init_params`` from ``seed``. Live, or with ``compute_dtype:
+    bfloat16`` both conv stacks folded into bfloat16
+    (``infer/fast.serving_model``)."""
+    from .infer.fast import serving_model
+
     device = resolve_device(device)
     disable_tf32()
     model = model_class(config)
@@ -61,7 +65,7 @@ def build_model(config: ModelConfig = FLAGSHIP, *,
         model.load_state_dict(state_dict, strict=True)
     else:
         init_params(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return serving_model(model.to(device).eval(), fast=False)
 
 
 __all__ = [

@@ -2,7 +2,9 @@
 
 Counterpart of the part of ``vrvq_tpu/audio.py`` that ``compress``,
 ``decompress`` and the training loader touch: ``audio_data`` is a numpy
-``(B, C, T)`` array, loudness is the BS.1770 meter of ``ops/loudness.py``,
+``(B, C, T)`` array, loudness is the BS.1770 meter of the native library
+(``native/io.py``; the numpy meter of ``ops/loudness.py`` where it is not
+built),
 and the gain and excerpt arithmetic is the JAX package's line for line, so
 both packages hand the codec the same samples. Files of every format of
 ``data/audio_io.AUDIO_EXTENSIONS`` (wav, flac, mp3, mp4, m4a) load through
@@ -18,6 +20,7 @@ from typing import Optional
 import numpy as np
 
 from .data.audio_io import audio_info, read_audio, write_wav
+from .native import io as native_io
 from .ops.loudness import integrated_loudness
 from .ops.resample import resample_poly_np
 
@@ -132,11 +135,16 @@ class Signal:
         return self
 
     def loudness(self, block_size: float = 0.4) -> np.ndarray:
-        """BS.1770 integrated loudness per batch item (LUFS), floored at -70."""
+        """BS.1770 integrated loudness per batch item (LUFS), floored at -70:
+        the native meter's where the library is built, as the JAX package
+        measures, else the numpy meter's."""
         data = np.asarray(self.audio_data, dtype=np.float32)
-        out = integrated_loudness(
-            data.astype(np.float64), self.sample_rate, block_size=block_size
-        )
+        if native_io.library() is not None:
+            out = np.asarray([native_io.loudness(item, self.sample_rate, block_size)
+                              for item in data], np.float64)
+        else:
+            out = integrated_loudness(data.astype(np.float64), self.sample_rate,
+                                      block_size=block_size)
         return np.maximum(out, -70.0).astype(np.float32)
 
     def normalize(self, db: float = -24.0) -> "Signal":

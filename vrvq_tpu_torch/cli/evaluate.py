@@ -9,7 +9,7 @@ The folder may hold wav, flac, mp3, mp4 and m4a files (``data/audio_io.py``).
 The generator comes from ``--torch_ckpt``, ``--ckpt_dir``/``--ckpt_path`` at
 ``--tag``, or a seeded draw (``train/checkpoint.py: load_gen_params``);
 ``--fast`` (on by default) serves the fast profile
-(``infer/fast.make_inference_model``). Each example (``--duration`` s of a
+(``infer/fast.serving_model``). Each example (``--duration`` s of a
 file, in sorted order) is encoded once and decoded at every level in one
 batched pass (``LevelSweep``). Per level: SI-SDR, SDR, SI-SNR, SNR, L1, the
 mel and multi-scale STFT losses of the config and, with ``--visqol``,
@@ -36,7 +36,7 @@ import torch
 from .. import disable_tf32, resolve_device
 from ..config import REPO, model_config, parse_args
 from ..data.loaders import AudioLoader
-from ..infer.fast import make_inference_model
+from ..infer.fast import serving_model
 from ..infer.sweep import DEFAULT_LEVELS, LevelSweep
 from ..losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
 from ..metrics import (_visqol_batch, cal_entropy, cal_metrics, codebook_usage,
@@ -68,10 +68,10 @@ def parse_levels(levels) -> List[float]:
 
 def load_model(cfg, device, fast: bool = True) -> DAC_VRVQ:
     """The config's generator on ``device``, in the fast profile with
-    ``fast``."""
+    ``fast`` (``infer/fast.serving_model``)."""
     disable_tf32()
     model = load_gen_params(cfg, DAC_VRVQ(model_config(cfg)), device).eval()
-    return make_inference_model(model) if fast else model
+    return serving_model(model, fast)
 
 
 def evaluate(cfg, model: Optional[DAC_VRVQ] = None,

@@ -9,7 +9,8 @@ The generator comes from ``--torch_ckpt`` (a reference-layout state dict),
 a seeded draw (``train/checkpoint.py: load_gen_params``). As in the JAX CLI,
 ``--fast`` (on by default) serves the fast profile (weight norm folded out of
 the decoder, which runs in bfloat16 with the polynomial Snake; the codes are
-the live encoder's). For each of ``--num_examples`` (30) excerpts of
+the live encoder's); ``DAC_VRVQ.compute_dtype: bfloat16`` serves both conv
+stacks in bfloat16 (``infer/fast.serving_model``). For each of ``--num_examples`` (30) excerpts of
 ``--duration`` s (10) it writes ``LevelSweep.save_results``'s folder:
 ``recon_<level>.wav`` at each of ``--levels``, ``input.wav``,
 ``metadata.json`` and the mask PNGs. Runs on the card unless ``--device
@@ -27,7 +28,7 @@ import torch
 from .. import disable_tf32, resolve_device
 from ..config import REPO, model_config, parse_args
 from ..data.loaders import AudioLoader
-from ..infer.fast import make_inference_model
+from ..infer.fast import serving_model
 from ..infer.sweep import DEFAULT_LEVELS, save_results
 from ..models.dac_vrvq import DAC_VRVQ
 from ..train.checkpoint import load_gen_params
@@ -40,9 +41,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = DAC_VRVQ(model_config(cfg))
     if not model.vbr:
         raise ValueError("the level sweep needs a VBR model; this config is CBR")
-    model = load_gen_params(cfg, model, device).eval()
-    if cfg.get("fast", True):
-        model = make_inference_model(model)
+    model = serving_model(load_gen_params(cfg, model, device).eval(),
+                          fast=cfg.get("fast", True))
 
     loader = AudioLoader(sources=[cfg.get("data_dir")], shuffle=False)
     levels = cfg.get("levels", DEFAULT_LEVELS)

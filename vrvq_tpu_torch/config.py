@@ -409,7 +409,10 @@ class ModelConfig:
     output width (None: it doubles at every stride, ``resolved_latent_dim``).
     The two ``snake_approx`` fields train and run that stack with the
     polynomial Snake; ``detach_imp_map_input`` stops the importance subnet's
-    gradient at its input."""
+    gradient at its input. ``compute_dtype`` is the conv stacks' dtype when
+    serving (``float32`` or ``bfloat16``; the quantizer stays float32, as in
+    the JAX model): ``infer/fast.serving_model`` maps it onto a ``Profile``,
+    and training takes float32 only."""
 
     sample_rate: int = 44100
     encoder_dim: int = 64
@@ -432,10 +435,14 @@ class ModelConfig:
     detach_imp_map_input: bool = False
     encoder_snake_approx: bool = False
     decoder_snake_approx: bool = False
+    compute_dtype: str = "float32"
 
     def __post_init__(self):
         if self.model_type not in ("VBR", "CBR"):
             raise ValueError(f"Invalid RVQ model_type: {self.model_type!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                             f"{self.compute_dtype!r}")
         if not isinstance(self.codebook_dim, int):  # a YAML list: hashable
             object.__setattr__(self, "codebook_dim", tuple(self.codebook_dim))
 

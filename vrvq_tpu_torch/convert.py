@@ -29,9 +29,19 @@ write it) converts by ``state_dict_from_reference``, VBR, CBR or
 
 The discriminator converts likewise (``discriminator_state_dict_from_jax``):
 a 2-D conv ``v`` is flax ``(kh, kw, in, out)``, the port's ``(out, in, kh,
-kw)``. A gradient tree has its parameters' layout, so the same two functions
-map ``jax.grad``'s trees onto the port's keys, for comparing gradients leaf
-by leaf.
+kw)``; MSD's 1-D conv ``v`` flax ``(k, in / groups, out)``, the port's
+``(out, in / groups, k)``. A gradient tree has its parameters' layout, so the
+same two functions map ``jax.grad``'s trees onto the port's keys, for
+comparing gradients leaf by leaf. From and to the reference's layout
+(``discriminators.{i}.convs.{j}.0``, ``band_convs.{b}.{j}.0``,
+``conv_post``, the sub-discriminators numbered MPD, MSD, MRD in turn):
+``discriminator_state_dict_from_reference`` and
+``discriminator_state_dict_to_reference``.
+
+The exports, ``state_dict_to_reference`` and
+``discriminator_state_dict_to_reference`` (the JAX package's
+``export_torch_state_dict`` and ``export_torch_discriminator_state_dict``),
+read a live model: a folded one carries no weight-norm split and raises.
 """
 
 from __future__ import annotations
@@ -151,15 +161,109 @@ def state_dict_from_reference(state_dict: Mapping, model) -> Dict[str, torch.Ten
     return out
 
 
+def _reference_leaf(key: str, value: torch.Tensor, n_enc: int, n_dec: int):
+    """A port codec key and tensor -> the reference's key and tensor."""
+    path, leaf = key.rsplit(".", 1)
+    ref = f"{_reference_module(path, n_enc, n_dec)}.{_LEAF[leaf]}"
+    if leaf == "v" and path.endswith(("in_proj", "out_proj")):
+        value = value.T[:, :, None]  # (in, out) -> (out, in, 1)
+    elif leaf == "g":
+        value = value.reshape(-1, 1, 1)
+    elif leaf == "alpha":
+        value = value.reshape(1, -1, 1)
+    return ref, value
+
+
+def _live(model) -> None:
+    folded = [n for n, _ in model.named_parameters() if n.endswith(".w")]
+    if folded:
+        raise ValueError(
+            f"{folded[0]}: a folded model (fast-inference profile) carries no "
+            "weight-norm split and cannot be exported; export the live model")
+
+
+def state_dict_to_reference(model) -> Dict[str, torch.Tensor]:
+    """The reference-layout ``state_dict`` of ``model`` (a live ``DAC_VRVQ``
+    or ``DAC_MOE``, VBR or CBR), float32 on the CPU: the inverse of
+    ``state_dict_from_reference``, key for key and bit for bit. A folded
+    model raises."""
+    _live(model)
+    cfg = model.config
+    n_enc, n_dec = len(cfg.encoder_rates), len(cfg.decoder_rates)
+    out = {}
+    for key, value in model.state_dict().items():
+        ref, value = _reference_leaf(key, value.detach(), n_enc, n_dec)
+        out[ref] = value.to("cpu", torch.float32).contiguous().clone()
+    return out
+
+
+def _discriminator_reference(discriminator) -> Dict[str, str]:
+    """Each port key of ``discriminator``'s state dict -> its reference key."""
+    names = {}
+    for idx, sub in enumerate(discriminator.names):
+        base = f"discriminators.{idx}"
+        for key in getattr(discriminator, sub).state_dict():
+            conv, leaf = key.rsplit(".", 1)
+            m = re.fullmatch(r"conv_(\d+)|band_(\d+)_conv_(\d+)|conv_post", conv)
+            if m is None:
+                raise KeyError(f"no reference name for {sub}.{key}")
+            if m[1] is not None:
+                ref = f"{base}.convs.{m[1]}.0"
+            elif m[2] is not None:
+                ref = f"{base}.band_convs.{m[2]}.{m[3]}.0"
+            else:
+                ref = f"{base}.conv_post"
+            names[f"{sub}.{key}"] = f"{ref}.{_LEAF[leaf]}"
+    return names
+
+
+def discriminator_state_dict_to_reference(discriminator) -> Dict[str, torch.Tensor]:
+    """The reference-layout ``state_dict`` of the port's ``Discriminator``
+    (MPD, MSD and MRD), float32 on the CPU: conv ``weight_v`` in the port's
+    layout, ``weight_g`` with unit axes (``(out, 1, 1)`` a 1-D conv,
+    ``(out, 1, 1, 1)`` a 2-D one)."""
+    sd = discriminator.state_dict()
+    out = {}
+    for key, ref in _discriminator_reference(discriminator).items():
+        value = sd[key].detach()
+        if key.endswith(".g"):
+            value = value.reshape(-1, *[1] * (sd[key[:-1] + "v"].ndim - 1))
+        out[ref] = value.to("cpu", torch.float32).contiguous().clone()
+    return out
+
+
+def discriminator_state_dict_from_reference(state_dict: Mapping,
+                                            discriminator) -> Dict[str, torch.Tensor]:
+    """A reference-layout discriminator ``state_dict`` (tensors or numpy
+    arrays) -> the state dict of ``discriminator`` (whose ``periods``,
+    ``rates`` and ``fft_sizes`` name the reference's sub-discriminators in
+    turn). A key of either side that the other lacks raises."""
+    out, used = {}, set()
+    params = discriminator.state_dict()
+    for key, ref in _discriminator_reference(discriminator).items():
+        if ref not in state_dict:
+            raise KeyError(f"{ref} (for {key}) is missing from the state dict")
+        value = np.asarray(state_dict[ref], np.float32)
+        out[key] = torch.tensor(np.ascontiguousarray(value).reshape(params[key].shape))
+        used.add(ref)
+    extra = sorted(set(state_dict) - used)
+    if extra:
+        raise KeyError(f"state dict keys the discriminator lacks: {extra[:8]}")
+    return out
+
+
 def discriminator_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX ``Discriminator``'s parameter (or gradient) tree -> the port's
     ``state_dict``: ``mpd_2.conv_0.v`` and so on, 2-D conv ``v`` transposed
-    from ``(kh, kw, in, out)`` to ``(out, in, kh, kw)``."""
+    from ``(kh, kw, in, out)`` to ``(out, in, kh, kw)``, MSD's 1-D conv ``v``
+    from ``(k, in / groups, out)`` to ``(out, in / groups, k)``."""
     tree = params.get("params", params)
     sd = {}
     for key, value in _flatten(tree).items():
         if key.endswith(".v") and value.ndim == 4:
             value = np.transpose(value, (3, 2, 0, 1))
+        elif key.endswith(".v") and value.ndim == 3:
+            value = np.transpose(value, (2, 1, 0))
         sd[key] = _tensor(value)
     return sd
 

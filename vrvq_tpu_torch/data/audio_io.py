@@ -2,14 +2,18 @@
 
 Counterpart of ``vrvq_tpu/data/audio_io.py``, numpy only, with the same five
 ``AUDIO_EXTENSIONS`` in the same order, so both packages list the same files
-of a folder and decode them to the same samples. Wav is parsed here (only
-the excerpt's bytes are read), flac in ``data/flac_py.py``, mp3 through the
-system ``libmpg123`` (``data/mpeg.py``) and mp4/m4a through a small C++ shim
-over the system FFmpeg libraries, built at first use (``data/ffdecode.py``).
-A file with no decoder (an unknown suffix, or a library this machine lacks)
-raises ``UnsupportedFormatError``; the loaders turn that into one warning
-and silence. The JAX package's optional C++ wav/flac reader is not ported:
-``read_flac`` is the Python decoder.
+of a folder and decode them to the same samples. Wav and flac are read by the
+native library (``native/io.py``, built with ``g++`` at first use) as the
+JAX package reads them; the numpy wav parser here and the Python decoder of
+``data/flac_py.py`` are their plain versions, taken where the library is
+unavailable (it then warns once with the reason) or rejects a file.
+Header-only info (``wav_info``, ``audio_info``) is parsed in Python, as in
+the JAX package. mp3 goes through the system ``libmpg123``
+(``data/mpeg.py``) and mp4/m4a through a small C++ shim over the system
+FFmpeg libraries, built at first use (``data/ffdecode.py``). A file with no
+decoder (an unknown suffix, or a library this machine lacks) raises
+``UnsupportedFormatError``; the loaders turn that into one warning and
+silence.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..native import io as native_io
 
 AUDIO_EXTENSIONS = [".wav", ".flac", ".mp3", ".mp4", ".m4a"]
 
@@ -86,7 +92,15 @@ def read_wav(path, offset: float = 0.0,
              duration: Optional[float] = None) -> Tuple[np.ndarray, int]:
     """A wav file's excerpt -> ((C, T) float32 in [-1, 1], sample rate). PCM
     8/16/24/32-bit or float; seeks to ``offset`` seconds and reads
-    ``duration`` seconds (to the end for None)."""
+    ``duration`` seconds (to the end for None). Natively where the library
+    is built, else by ``read_wav_np``."""
+    out = native_io.read_wav(path, offset, duration)
+    return read_wav_np(path, offset, duration) if out is None else out
+
+
+def read_wav_np(path, offset: float = 0.0,
+                duration: Optional[float] = None) -> Tuple[np.ndarray, int]:
+    """``read_wav``'s plain version: the header and samples parsed in numpy."""
     with open(path, "rb") as f:
         info, data_offset, _ = _parse_wav_header(f)
         frame_bytes = (info.bit_depth // 8) * info.num_channels
@@ -149,7 +163,11 @@ def write_wav(path, data: np.ndarray, sample_rate: int,
 
 def read_flac(path, offset: float = 0.0,
               duration: Optional[float] = None) -> Tuple[np.ndarray, int]:
-    """A flac file's excerpt -> ((C, T) float32 in [-1, 1], sample rate)."""
+    """A flac file's excerpt -> ((C, T) float32 in [-1, 1], sample rate):
+    natively where the library is built, else by ``data/flac_py.py``."""
+    out = native_io.read_flac(path, offset, duration)
+    if out is not None:
+        return out
     from .flac_py import read_flac as _read_flac_py
 
     return _read_flac_py(path, offset=offset, duration=duration)

@@ -4,9 +4,8 @@ C++ shim over the system libavformat/libavcodec/libswresample.
 Counterpart of ``vrvq_tpu/data/ffdecode.py``. The shim is
 ``vrvq_tpu_torch/native/ffdecode.cc`` (a copy of the JAX package's, with its
 ``extern "C"`` API): it is built with ``g++`` at first use, with the flags
-of the JAX package's Makefile, into ``kernels/_build/`` (git-ignored), named
-by a hash of the source, the flags and the compiler, as ``kernels/build.py``
-names the CUDA library; nothing is compiled at import. Where the FFmpeg
+of the JAX package's Makefile, into ``kernels/_build/`` (git-ignored), by
+``native.build``; nothing is compiled at import. Where the FFmpeg
 headers are absent, or the build or the load fails, ``read_ffmpeg`` and
 ``ffmpeg_info`` raise ``UnsupportedFormatError`` with the reason (the
 compiler's last lines), and the loaders warn once and substitute silence.
@@ -16,21 +15,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-from ..kernels.build import BUILD_DIR
+from ..native import SOURCE_DIR, build
 from .audio_io import UnsupportedFormatError
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "ffdecode.cc"
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+SOURCE = SOURCE_DIR / "ffdecode.cc"
 LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswresample")
 HEADER_DIRS = ("/usr/include/x86_64-linux-gnu", "/usr/include")
 
@@ -41,31 +35,6 @@ _REASON: Optional[str] = None
 
 class FfmpegDecodeError(ValueError):
     """The shim could not open or decode the bitstream."""
-
-
-def library_path(cxx: str) -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS + LIBS).encode())
-    h.update(cxx.encode())
-    return BUILD_DIR / f"libvrvqff_{h.hexdigest()[:16]}.so"
-
-
-def _build(cxx: str, out: Path) -> None:
-    """Compile the shim into ``out`` (through a temporary name, so processes
-    that build at once each see a whole file)."""
-    if not any((Path(d) / "libavformat" / "avformat.h").is_file()
-               for d in HEADER_DIRS):
-        raise RuntimeError("libavformat/avformat.h not found in "
-                           f"{' or '.join(HEADER_DIRS)} (FFmpeg dev headers)")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LIBS]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        tail = "\n".join((proc.stdout + proc.stderr).strip().splitlines()[-8:])
-        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n{tail}")
-    os.replace(tmp, out)
 
 
 def _declare(lib) -> None:
@@ -90,13 +59,12 @@ def _load():
         if _LIB is not None or _REASON is not None:
             return _LIB
         try:
-            cxx = shutil.which(os.environ.get("CXX", "g++"))
-            if cxx is None:
-                raise RuntimeError("no C++ compiler (g++ or $CXX) on PATH")
-            path = library_path(cxx)
-            if not path.exists():
-                _build(cxx, path)
-            lib = ctypes.CDLL(str(path))
+            if not any((Path(d) / "libavformat" / "avformat.h").is_file()
+                       for d in HEADER_DIRS):
+                raise RuntimeError(
+                    "libavformat/avformat.h not found in "
+                    f"{' or '.join(HEADER_DIRS)} (FFmpeg dev headers)")
+            lib = ctypes.CDLL(str(build("libvrvqff", [SOURCE], LIBS)))
             _declare(lib)
         except (OSError, RuntimeError) as exc:
             _REASON = str(exc)

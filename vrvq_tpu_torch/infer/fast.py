@@ -25,7 +25,13 @@ Counterpart of ``vrvq_tpu/infer/fast.py``, with the same defaults:
     ``decode_dtype=None`` the decoder computes in that dtype too, as the
     JAX model's ``compute_dtype`` makes it.
 
-Both take a live ``DAC_VRVQ`` or ``DAC_MOE`` and return a new one of the
+``serving_model`` is how the CLIs and ``build_model`` serve a config: the
+fast profile (with ``fast``) or the live model, except that a config's
+``compute_dtype: bfloat16`` folds both conv stacks into bfloat16 (the Snake
+as the config sets it, the quantizer float32), as the JAX model computes
+with that field.
+
+They take a live ``DAC_VRVQ`` or ``DAC_MOE`` and return a new one of the
 same class on the same device; the quantizer's tensors are shared with the
 given model, never copied or folded. The time-packed layouts
 (``encode_packed``, ``decode_packed``, ``decode_packed_up``) are not ported
@@ -103,6 +109,23 @@ def make_inference_model(
         state = _folded(state, "encoder.",
                         None if encode_dtype is None else _dtype(encode_dtype))
     return model.with_state(state, profile=profile)
+
+
+def serving_model(model: DAC_VRVQ, fast: bool) -> DAC_VRVQ:
+    """``model`` (live) as its config serves it: with ``fast`` the fast
+    profile (its encoder in the config's ``compute_dtype`` where that is
+    bfloat16), else the live model, or where ``compute_dtype`` is bfloat16
+    both conv stacks folded into bfloat16 with the config's Snakes."""
+    dtype = model.config.compute_dtype
+    encode_dtype = None if dtype == "float32" else dtype
+    if fast:
+        return make_inference_model(model, encode_dtype=encode_dtype)
+    if encode_dtype is None:
+        return model
+    return make_inference_model(
+        model, decode_dtype=None, encode_dtype=encode_dtype,
+        snake_approx=model.config.decoder_snake_approx,
+        encode_snake_approx=model.config.encoder_snake_approx)
 
 
 def make_serving_model(model: DAC_VRVQ, encode_packed: bool = False,

@@ -1,12 +1,14 @@
-"""The GAN discriminator: multi-period (MPD) and multi-band complex-STFT (MRD)
-sub-discriminators.
+"""The GAN discriminator: multi-period (MPD), multi-scale waveform (MSD) and
+multi-band complex-STFT (MRD) sub-discriminators.
 
 Counterpart of ``vrvq_tpu/models/discriminator.py``, in PyTorch's layout:
 2-D feature maps are ``(B, C, H, W)`` where the JAX package keeps
-``(B, H, W, C)``. H is time in both (MPD: frames of ``period`` samples; MRD:
-STFT frames) and W the period or the frequency bins. Each sub-discriminator
-returns its feature maps, the logit map last. The waveform sub-discriminator
-MSD is not ported: the flagship runs none (``Discriminator.rates: []``).
+``(B, H, W, C)``, MSD's 1-D maps ``(B, C, T)`` where it keeps ``(B, T, C)``.
+H is time in both (MPD: frames of ``period`` samples; MRD: STFT frames) and
+W the period or the frequency bins. Each sub-discriminator returns its
+feature maps, the logit map last. The flagship runs no MSD
+(``Discriminator.rates: []``); a rate other than 1 resamples in the graph
+(``ops/resample.resample``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import weight_norm
+from ..nn.layers import WNConv1d, weight_norm
+from ..ops.resample import resample
 from ..ops.stft import stft
 
 BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
@@ -78,6 +81,42 @@ class MPD(nn.Module):
         return fmap
 
 
+class MSD(nn.Module):
+    """The waveform at ``sample_rate // rate`` (resampled in the graph where
+    ``rate`` is not 1) through six weight-normed 1-D convs, four of them
+    grouped and strided, then one conv to logits."""
+
+    # (in, out, kernel, stride, groups, padding)
+    SPECS = (
+        (1, 16, 15, 1, 1, 7),
+        (16, 64, 41, 4, 4, 20),
+        (64, 256, 41, 4, 16, 20),
+        (256, 1024, 41, 4, 64, 20),
+        (1024, 1024, 41, 4, 256, 20),
+        (1024, 1024, 5, 1, 1, 2),
+    )
+
+    def __init__(self, rate: int = 1, sample_rate: int = 44100):
+        super().__init__()
+        self.rate = rate
+        self.sample_rate = sample_rate
+        for i, (cin, cout, k, s, g, p) in enumerate(self.SPECS):
+            self.add_module(f"conv_{i}", WNConv1d(cin, cout, k, stride=s,
+                                                  padding=p, groups=g))
+        self.conv_post = WNConv1d(1024, 1, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x (B, 1, T) -> feature maps (B, C, T')."""
+        if self.rate != 1:
+            x = resample(x, self.sample_rate, self.sample_rate // self.rate)
+        fmap = []
+        for i in range(len(self.SPECS)):
+            x = _leaky(getattr(self, f"conv_{i}")(x))
+            fmap.append(x)
+        fmap.append(self.conv_post(x))
+        return fmap
+
+
 class MRD(nn.Module):
     """Complex STFT (``match_stride``, hop = window / 4) as two channels (real,
     imaginary) ``(B, 2, frames, bins)``, cut into frequency bands at
@@ -123,9 +162,10 @@ class MRD(nn.Module):
 
 
 class Discriminator(nn.Module):
-    """MPD at each period, then MRD at each FFT size, on the audio with its DC
-    removed and its peak normalized to 0.8. Submodules are named as the
-    JAX package's (``mpd_{period}``, ``mrd_{n_fft}``)."""
+    """MPD at each period, MSD at each rate, then MRD at each FFT size, on the
+    audio with its DC removed and its peak normalized to 0.8. Submodules are
+    named and ordered as the JAX package's (``mpd_{period}``, ``msd_{rate}``,
+    ``mrd_{n_fft}``)."""
 
     def __init__(self, rates: Sequence[int] = (),
                  periods: Sequence[int] = (2, 3, 5, 7, 11),
@@ -133,14 +173,13 @@ class Discriminator(nn.Module):
                  sample_rate: int = 44100,
                  bands: Sequence[Tuple[float, float]] = BANDS):
         super().__init__()
-        if len(rates):
-            raise NotImplementedError(
-                "MSD (Discriminator.rates) is not ported; the flagship "
-                "configuration runs none")
         self.sample_rate = sample_rate
-        self.names = [f"mpd_{p}" for p in periods] + [f"mrd_{f}" for f in fft_sizes]
+        self.names = ([f"mpd_{p}" for p in periods] + [f"msd_{r}" for r in rates]
+                      + [f"mrd_{f}" for f in fft_sizes])
         for p in periods:
             self.add_module(f"mpd_{p}", MPD(p))
+        for r in rates:
+            self.add_module(f"msd_{r}", MSD(r, sample_rate))
         for f in fft_sizes:
             self.add_module(f"mrd_{f}", MRD(f, bands=bands))
 

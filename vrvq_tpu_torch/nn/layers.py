@@ -51,13 +51,13 @@ def _conv_params(module: nn.Module, v_shape, bias_channels: int,
 
 
 class WNConv1d(nn.Module):
-    """Weight-normed 1-D conv. ``v (out, in, k)``, ``g (out,)``; folded,
-    ``w (out, in, k)``."""
+    """Weight-normed 1-D conv. ``v (out, in / groups, k)``, ``g (out,)``;
+    folded, ``w (out, in / groups, k)``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
                  pad_mode: str = "zeros", folded: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
         super().__init__()
         if pad_mode not in ("zeros", "none"):
             raise ValueError(f"pad_mode must be 'zeros' or 'none', got {pad_mode}")
@@ -65,7 +65,8 @@ class WNConv1d(nn.Module):
         self.stride = stride
         self.padding = padding if pad_mode == "zeros" else 0
         self.dilation = dilation
-        _conv_params(self, (out_channels, in_channels, kernel_size),
+        self.groups = groups
+        _conv_params(self, (out_channels, in_channels // groups, kernel_size),
                      out_channels, folded, dtype)
 
     def weight(self) -> torch.Tensor:
@@ -75,7 +76,7 @@ class WNConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv1d(x, self.weight(), None, self.stride, self.padding,
-                     self.dilation)
+                     self.dilation, self.groups)
         return y + self.bias.reshape(1, -1, 1)
 
 

@@ -6,15 +6,23 @@ so that the same symbols give the same bytes in both packages: the
 carry-counting byte-wise range coder (Subbotin / LZMA ``ShiftLow``): 32-bit
 range, 2^24 renormalization, 5-byte flush. One adaptive model per context:
 a Fenwick tree of symbol counts, +32 per hit, halved when the total reaches
-2^16. Encoder and decoder update alike, so no table is stored. The JAX
-package's C++ backend (byte-identical, faster) is not ported.
+2^16. Encoder and decoder update alike, so no table is stored.
+
+``AdaptiveCoder`` codes through the native library's C++ coder
+(``native/io.py``, the port's copy of the JAX package's ``rangecoder.cc``:
+byte-identical output) by default, and through the Python coder here, its
+plain version, with ``backend="python"`` or where the library is
+unavailable (it then warns once with the reason).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
+
+from ..native import io as native_io
 
 _TOP = 1 << 24
 _MASK32 = 0xFFFFFFFF
@@ -144,12 +152,39 @@ class AdaptiveCoder:
     """Stateful adaptive coder: the frequency models persist across
     ``encode`` / ``decode`` calls (each call is one independently flushed
     packet), so a sender and a receiver stay in sync as long as packets are
-    coded and decoded in order (``infer/streaming.PacketCodec``)."""
+    coded and decoded in order (``infer/streaming.PacketCodec``).
 
-    def __init__(self, n_symbols: int, n_contexts: int = 1):
+    ``backend``: ``"native"`` (the C++ coder; raises where the library is
+    unavailable), ``"python"`` (the plain coder) or ``"auto"`` (native where
+    the library loads). Both give the same bytes."""
+
+    def __init__(self, n_symbols: int, n_contexts: int = 1,
+                 backend: str = "auto"):
+        if backend not in ("auto", "native", "python"):
+            raise ValueError(f"backend must be auto, native or python, got {backend!r}")
         self.n_symbols = n_symbols
         self.n_contexts = n_contexts
-        self.models = [_Fenwick(n_symbols) for _ in range(n_contexts)]
+        self._lib = native_io.library() if backend != "python" else None
+        if backend == "native" and self._lib is None:
+            raise RuntimeError(f"the native range coder is unavailable: "
+                               f"{native_io.reason()}")
+        self._handle = None
+        if self._lib is not None:
+            # the C++ model takes n_symbols >= 2 (None otherwise, as in JAX:
+            # the Python coder then serves)
+            self._handle = self._lib.vrvq_rc_model_new(n_symbols, n_contexts)
+            if not self._handle:
+                self._lib = None
+        if self._lib is None:
+            self.models = [_Fenwick(n_symbols) for _ in range(n_contexts)]
+
+    @property
+    def backend(self) -> str:
+        return "python" if self._lib is None else "native"
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.vrvq_rc_model_free(self._handle)
 
     def _ctx(self, contexts, size):
         ctx = (np.zeros(size, np.int64) if contexts is None
@@ -168,6 +203,19 @@ class AdaptiveCoder:
         ):
             raise ValueError("symbol out of range")
         ctx = self._ctx(contexts, symbols.size)
+        if self._lib is not None:
+            syms = np.ascontiguousarray(symbols, np.int32)
+            cx = np.ascontiguousarray(ctx, np.int32)
+            cap = symbols.size * 4 + 64  # at most ~17 bits a symbol + the flush
+            out = np.empty(cap, np.uint8)
+            n = self._lib.vrvq_rc_encode(
+                self._handle, syms.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                cx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), symbols.size,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+            if n < 0:
+                raise RuntimeError("range coder output overflow")
+            native_io.count("rc_encode_native")
+            return out[:n].tobytes()
         enc = _Encoder()
         for s, c in zip(symbols.tolist(), ctx.tolist()):
             m = self.models[c]
@@ -180,6 +228,16 @@ class AdaptiveCoder:
     def decode(self, data: bytes, count: int,
                contexts: Optional[np.ndarray] = None) -> np.ndarray:
         ctx = self._ctx(contexts, count)
+        if self._lib is not None:
+            buf = np.frombuffer(bytes(data), np.uint8)
+            cx = np.ascontiguousarray(ctx, np.int32)
+            out = np.empty(max(count, 1), np.uint32)
+            self._lib.vrvq_rc_decode(
+                self._handle, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                buf.size, cx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), count,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+            native_io.count("rc_decode_native")
+            return out[:count]
         dec = _Decoder(data)
         out = np.empty(count, np.uint32)
         for i in range(count):
@@ -198,11 +256,12 @@ def encode_adaptive(
     n_symbols: int,
     contexts: Optional[np.ndarray] = None,
     n_contexts: int = 1,
+    backend: str = "auto",
 ) -> bytes:
     """Range-code ``symbols`` (flat ints in [0, n_symbols)) with one adaptive
     model per context (flat ints in [0, n_contexts); None: one shared
     model). One-shot: fresh models per call."""
-    return AdaptiveCoder(n_symbols, n_contexts).encode(symbols, contexts)
+    return AdaptiveCoder(n_symbols, n_contexts, backend).encode(symbols, contexts)
 
 
 def decode_adaptive(
@@ -211,7 +270,8 @@ def decode_adaptive(
     n_symbols: int,
     contexts: Optional[np.ndarray] = None,
     n_contexts: int = 1,
+    backend: str = "auto",
 ) -> np.ndarray:
     """Inverse of ``encode_adaptive``; ``contexts`` must replay the
     encoder's context sequence."""
-    return AdaptiveCoder(n_symbols, n_contexts).decode(data, count, contexts)
+    return AdaptiveCoder(n_symbols, n_contexts, backend).decode(data, count, contexts)

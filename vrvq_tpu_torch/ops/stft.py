@@ -51,8 +51,18 @@ def compute_stft_padding(length: int, window_length: int, hop_length: int,
 
 
 def _window(window_type, window_length, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(get_window(window_type, window_length)).to(
-        device=like.device, dtype=like.dtype)
+    return on_device(get_window, (window_type, window_length), like.device, like.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def on_device(build, args: tuple, device: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``build(*args)`` (a numpy array) as a tensor on ``device``, copied
+    there once: a copy from the host at every call would make the host wait
+    for the stream. Made outside inference mode, so that a graph that is
+    differentiated may use it whatever mode first asked for it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(build(*args)).to(device=device, dtype=dtype)
 
 
 def stft(x: torch.Tensor, window_length: int, hop_length: int,
@@ -149,6 +159,6 @@ def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_mels: int,
     slaney mel filterbank."""
     mag = torch.abs(stft(x, window_length, hop_length, window_type,
                          match_stride))
-    basis = torch.from_numpy(mel_filterbank(
-        sample_rate, window_length, n_mels, mel_fmin, mel_fmax)).to(mag.device)
+    basis = on_device(mel_filterbank, (sample_rate, window_length, n_mels, mel_fmin,
+                                       mel_fmax), mag.device, torch.float32)
     return torch.einsum("...ft,mf->...mt", mag, basis)

@@ -6,6 +6,9 @@ state dicts, both optimizers and the step) and ``{save_path}/{tag}/meta.json``
 ``best`` when the validation mel loss improves, ``{N}k`` at ``save_iters``.
 Tensors are saved as they are, so a load restores them bit for bit.
 ``load_gen_params`` gives an inference CLI its generator's parameters.
+``save_torch_checkpoint`` and ``load_torch_checkpoint`` write and read the
+reference's ``weights.pth`` (``{"state_dict": ...}`` in the reference's
+layout, ``convert.state_dict_to_reference``), as the JAX package's do.
 
 In a process group every rank calls ``save_checkpoint`` (a ZeRO optimizer's
 state is gathered to rank 0 by all of them), rank 0 alone writes, and the
@@ -95,6 +98,24 @@ def load_metadata(save_path, tag: str = "latest") -> Dict[str, Any]:
         return json.load(f)
 
 
+def save_torch_checkpoint(model, path) -> None:
+    """Write ``model`` (a live codec) as a reference-loadable ``weights.pth``:
+    ``{"state_dict": ...}`` of CPU float32 tensors in the reference's layout."""
+    from ..convert import state_dict_to_reference
+
+    torch.save({"state_dict": state_dict_to_reference(model)}, path)
+
+
+def load_torch_checkpoint(path, model):
+    """Load a reference ``weights.pth`` (``{"state_dict": ...}``, or the dict
+    itself) into ``model`` (a live codec of its config); returns ``model``."""
+    from ..convert import state_dict_from_reference
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state_dict_from_reference(sd.get("state_dict", sd), model))
+    return model
+
+
 def load_gen_params(cfg, model, device=None):
     """``model`` (a live ``DAC_VRVQ``) with its parameters from the config,
     on ``device`` (the card by default), as the JAX package's
@@ -104,14 +125,13 @@ def load_gen_params(cfg, model, device=None):
     generator of the port's checkpoint ``ckpt_path`` (or ``ckpt_dir``) at
     ``tag`` (``latest`` by default); else drawn from seed 0."""
     from .. import resolve_device
-    from ..convert import init_params, state_dict_from_reference
+    from ..convert import init_params
 
     device = resolve_device("cuda" if device is None else device)
     torch_ckpt = cfg.get("torch_ckpt")
     base = cfg.get("ckpt_path") or cfg.get("ckpt_dir")
     if torch_ckpt:
-        sd = torch.load(torch_ckpt, map_location="cpu", weights_only=True)
-        model.load_state_dict(state_dict_from_reference(sd.get("state_dict", sd), model))
+        load_torch_checkpoint(torch_ckpt, model)
     elif base:
         sd = torch.load(Path(base) / cfg.get("tag", "latest") / STATE_FILE,
                         map_location="cpu", weights_only=True)

@@ -9,8 +9,16 @@ keys read under ``cfg.scope("train")`` or ``"val"``, plain keys such as
 (``check_keys``). Batches are drawn by index (step * batch_size + i), so a
 resumed run reads what an uninterrupted one would; each step's random draws
 come from a ``torch.Generator`` seeded from ``(seed, step)``, as the JAX
-trainer folds the step into its key. Data are loaded on the host between
-steps (no prefetch thread); the transforms run on the device.
+trainer folds the step into its key. Batches are loaded on the host by
+``BatchPrefetcher`` (the JAX trainer's ``_batch_iterator``: ``num_workers``
+threads over the dataset's items, ``PREFETCH`` batches ahead of the step),
+or serially between steps with ``num_workers: 0``; either way the batches
+are the same, bit for bit, and the transforms run on the device, in the
+loop. Every ``sample_freq`` steps (and at the last) ``save_samples`` writes
+the ``val_idx`` items' audio and importance maps to TensorBoard, whose
+writer rank 0 opens under ``{save_path}/logs`` where ``tensorboardX`` or
+``torch.utils.tensorboard`` imports (``open_writer``); the tracker writes
+the metrics there too.
 ``grad_accum_steps`` K takes each update over K micro-batches
 (``loop.make_train_step``); ``split_train_step`` is the same update in the
 port; ``remat`` recomputes the generator's forward in its backward.
@@ -24,14 +32,19 @@ Validation is data-parallel where the val batch divides the ranks and
 replicated otherwise, its means averaged over the ranks. Rank 0 alone
 guards against clobbering, writes the log and the checkpoints. ``zero``
 shards AdamW's state over the ranks (an argument, as in JAX, not a key).
-Not ported: ``amp``, sample logging and TensorBoard.
+Not ported: ``amp`` (nothing in the JAX package reads it) and bfloat16
+training (``DAC_VRVQ.compute_dtype: bfloat16`` raises: the JAX package's
+gradient fails there, see ``load``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import queue
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
@@ -41,6 +54,7 @@ import torch
 from .. import disable_tf32, resolve_device
 from ..config import Config, ModelConfig, model_config
 from ..convert import init_params
+from ..data.audio_io import write_wav
 from ..data.loaders import AudioDataset, AudioLoader, ConcatDataset
 from ..data.transforms import TRANSFORMS, build_transform
 from ..losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
@@ -56,13 +70,10 @@ from .tracker import Tracker
 TRAIN_KEYS = {"resume", "overwrite_ok", "tag", "batch_size", "val_batch_size",
               "num_iters", "save_iters", "valid_freq", "seed", "lambdas",
               "grad_accum_steps", "split_train_step", "remat", "save_path",
-              "device", "coordinator", "num_processes", "process_id"}
+              "device", "coordinator", "num_processes", "process_id",
+              "num_workers", "sample_freq", "val_idx"}
 # keys of the JAX trainer that change nothing the port computes
 NO_EFFECT = {
-    "num_workers": "the port loads each batch on the host, with no worker pool",
-    "sample_freq": "audio samples go to TensorBoard, which the port does not "
-                   "write (nor does the JAX trainer without tensorboardX)",
-    "val_idx": "as sample_freq",
     "transforms_on_host": "the port applies the transforms on the device",
 }
 # keys the port takes only at the value it runs
@@ -168,13 +179,97 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 
 def load_batch(dataset, step: int, batch_size: int,
-               rows: Optional[List[int]] = None) -> Dict:
+               rows: Optional[List[int]] = None, map_fn: Callable = map) -> Dict:
     """The collated items ``step * batch_size + i`` (mod the dataset) of the
-    global batch's ``rows`` (all ``batch_size`` of them by default)."""
+    global batch's ``rows`` (all ``batch_size`` of them by default), each
+    loaded through ``map_fn`` (a pool's ``map`` loads them in parallel)."""
     n = max(len(dataset), 1)
     rows = range(batch_size) if rows is None else rows
-    items = [dataset[(step * batch_size + i) % n] for i in rows]
+    items = list(map_fn(dataset.__getitem__,
+                        [(step * batch_size + i) % n for i in rows]))
     return dataset.collate(items)
+
+
+# batches a BatchPrefetcher loads ahead (the JAX trainer's _batch_iterator's)
+PREFETCH = 2
+
+
+class BatchPrefetcher:
+    """The batches of steps ``start_step``, ``start_step + 1``, ... (each
+    ``load_batch``'s, bit for bit: the items are drawn by index), loaded
+    ahead by a producer thread that maps a pool of ``num_workers`` threads
+    over each batch's items and keeps up to ``PREFETCH`` batches in a
+    bounded queue. The counterpart of the JAX trainer's ``_batch_iterator``;
+    ``rows`` are a rank's rows of every global batch (its ``local_slice``).
+
+    Iterating yields ``(step, batch)``. An exception of the producer is
+    raised in the consumer at the batch it failed on. The threads touch no
+    device (the transforms stay with the consumer) and are daemons;
+    ``close`` (or leaving the ``with`` block) stops and joins them."""
+
+    def __init__(self, dataset, batch_size: int, start_step: int = 0,
+                 num_workers: int = 4,
+                 rows: Optional[List[int]] = None):
+        self._args = (dataset, batch_size, rows)
+        self._step = start_step
+        self._queue: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        self._stop = threading.Event()
+        self._pool = ThreadPoolExecutor(max_workers=max(1, num_workers),
+                                        thread_name_prefix="batch-loader")
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="batch-prefetcher")
+        self._thread.start()
+
+    def _produce(self) -> None:
+        dataset, batch_size, rows = self._args
+        step = self._step
+        try:
+            while not self._stop.is_set():
+                batch = load_batch(dataset, step, batch_size, rows, self._pool.map)
+                if not self._put((step, batch)):
+                    return
+                step += 1
+        except BaseException as exc:  # raised again in the consumer
+            self._put(exc)
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless the consumer closes first."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        item = self._queue.get()
+        if isinstance(item, BaseException):
+            self.close()
+            raise item
+        return item
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop the producer and join it and the pool's threads."""
+        self._stop.set()
+        while True:  # unblock a producer waiting on a full queue
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout)
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 @torch.no_grad()
@@ -194,11 +289,20 @@ def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
     calls it and starts from rank 0's parameters."""
     cfg = as_config(cfg)
     check_keys(cfg)
+    config = model_config(cfg)
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"DAC_VRVQ.compute_dtype: {config.compute_dtype} trains in neither "
+            "package: the JAX model's bfloat16 gradient fails (the transpose of "
+            "the decoder's out_conv, vrvq_tpu/nn/layers.py:241-251, raises "
+            "'lax.conv_general_dilated requires arguments to have the same "
+            "dtypes, got bfloat16, float32'), so the port trains in float32 "
+            "only; bfloat16 serves (build_model, the CLIs)")
     device = resolve_device("cuda" if device is None else device)
     disable_tf32()
     seed = int(cfg.get("seed", 0))
     draw = torch.Generator().manual_seed(seed)
-    generator = init_params(DAC_VRVQ(model_config(cfg)), draw).to(device)
+    generator = init_params(DAC_VRVQ(config), draw).to(device)
     discriminator = init_params(
         Discriminator(**cfg.kwargs("Discriminator")), draw).to(device)
 
@@ -263,6 +367,60 @@ def validate(state: State, batch_size: int) -> Dict[str, float]:
     return state.tracker.done("val", f"Iteration {state.tracker.step}")
 
 
+def open_writer(save_path):
+    """A TensorBoard ``SummaryWriter`` on ``{save_path}/logs``: tensorboardX's,
+    else ``torch.utils.tensorboard``'s, else None (as the JAX trainer, which
+    tries tensorboardX only)."""
+    logdir = f"{save_path}/logs"
+    try:
+        from tensorboardX import SummaryWriter
+
+        return SummaryWriter(logdir=logdir)
+    except ImportError:
+        pass
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=logdir)
+    except ImportError:
+        return None
+
+
+@torch.no_grad()
+def save_samples(state: State, val_idx: List[int], writer) -> None:
+    """The ``val_idx`` items of the val set through the generator at level
+    1: their audio at step 0 (``signal/sample_{i}.wav``), the reconstruction
+    (``recons/sample_{i}.wav``) and the importance mask times 0.7
+    (``imp_map/sample_{i}``, an image) at the tracker's step. Where the
+    writer cannot encode audio (tensorboardX without ``soundfile``) the
+    reconstructions go to ``{logdir}/samples/recons_{step}_{i}.wav``. Only
+    the rank with the writer (rank 0) runs the forward: it has no collective
+    here, where the JAX trainer's is a launch that every process joins."""
+    if not val_idx or writer is None:
+        return
+    batch = state.val_data.collate([state.val_data[i] for i in val_idx])
+    generator = state.train_state.generator
+    audio = torch.from_numpy(np.ascontiguousarray(batch["signal"].audio_data))
+    with torch.no_grad():
+        out = generator(audio.to(state.device), level=1.0)
+    step, sr = state.tracker.step, generator.sample_rate
+    recons = out["audio"].float().cpu().numpy()
+    try:
+        for i in range(recons.shape[0]):
+            if step == 0:
+                writer.add_audio(f"signal/sample_{i}.wav", audio[i, 0].numpy(), step, sr)
+            writer.add_audio(f"recons/sample_{i}.wav", recons[i, 0], step, sr)
+    except ImportError:
+        folder = Path(getattr(writer, "logdir", None) or writer.get_logdir()) / "samples"
+        folder.mkdir(parents=True, exist_ok=True)
+        for i in range(recons.shape[0]):
+            write_wav(folder / f"recons_{step}_{i}.wav", recons[i], sr)
+    if out.get("mask_imp") is not None:
+        mask = out["mask_imp"].float().cpu().numpy() * 0.7
+        for i in range(mask.shape[0]):
+            writer.add_image(f"imp_map/sample_{i}", mask[i][None], step)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -271,7 +429,8 @@ def _sync(device: torch.device) -> None:
 def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
           device=None, zero: bool = False) -> State:
     """Train for ``num_iters`` steps (from the ``tag`` checkpoint, ``latest``
-    by default, with ``resume``), validating and saving at every
+    by default, with ``resume``), writing samples at every
+    ``sample_freq``-th step and the last, validating and saving at every
     ``valid_freq``-th step and the last. Runs on the card unless ``device``
     says otherwise; float32 with TF32 off, as the JAX package trains
     (``amp: false``). In a process group every rank calls it with its own
@@ -295,22 +454,47 @@ def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
             "fresh save_path")
     if rank == 0:
         Path(save_path).mkdir(parents=True, exist_ok=True)
-    tracker = Tracker(log_file=str(Path(save_path) / "log.txt") if rank == 0 else None,
-                      rank=rank)
-    state = load(cfg, tracker, save_path, resume=cfg.get("resume", False),
-                 tag=cfg.get("tag", "latest"), device=device, zero=zero)
+    writer = open_writer(save_path) if rank == 0 else None
+    try:
+        tracker = Tracker(log_file=str(Path(save_path) / "log.txt") if rank == 0 else None,
+                          rank=rank, writer=writer)
+        state = load(cfg, tracker, save_path, resume=cfg.get("resume", False),
+                     tag=cfg.get("tag", "latest"), device=device, zero=zero)
+        num_workers = int(cfg.get("num_workers", 8))
+        if num_workers > 0:
+            with BatchPrefetcher(state.train_data, batch_size, tracker.step,
+                                 num_workers, rows=rows) as batches:
+                _loop(cfg, state, save_path, batch_size, rows, writer, batches)
+        else:
+            _loop(cfg, state, save_path, batch_size, rows, writer, None)
+    finally:
+        if writer is not None:
+            writer.close()
+    return state
 
+
+def _loop(cfg: Config, state: State, save_path, batch_size: int,
+          rows: Optional[List[int]], writer,
+          batches: Optional[BatchPrefetcher]) -> None:
+    """``train``'s steps, from the tracker's step to ``num_iters``; each
+    step's batch from ``batches`` or, without it, loaded here."""
+    tracker, device = state.tracker, state.device
     seed = int(cfg.get("seed", 0))
     val_batch_size = int(cfg.get("val_batch_size", 10))
     num_iters = int(cfg.get("num_iters", 250000))
     save_iters = cfg.get("save_iters", []) or []
     valid_freq = int(cfg.get("valid_freq", 1000))
+    sample_freq = int(cfg.get("sample_freq", 10000))
+    val_idx = list(cfg.get("val_idx", range(8)))
     for step in range(tracker.step, num_iters):
         tracker.step = step
         t0 = time.perf_counter()
-        audio = prepare_audio(state.train_data,
-                              load_batch(state.train_data, step, batch_size, rows),
-                              device)
+        if batches is None:
+            batch = load_batch(state.train_data, step, batch_size, rows)
+        else:
+            loaded, batch = next(batches)
+            assert loaded == step, (loaded, step)
+        audio = prepare_audio(state.train_data, batch, device)
         _sync(device)
         t1 = time.perf_counter()
         metrics = state.train_step(state.train_state, audio,
@@ -323,6 +507,8 @@ def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
         state.metrics.append(dict(zip(metrics, values)))
         tracker.log_metrics("train", state.metrics[-1])
         last = step == num_iters - 1
+        if step % sample_freq == 0 or last:
+            save_samples(state, val_idx, writer)
         if step % valid_freq == 0 or last:
             validate(state, val_batch_size)
             tags = ckpt.checkpoint_tags(step, save_iters,
@@ -330,4 +516,3 @@ def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
             tracker.print(f"Saving to {save_path} tags={tags}")
             ckpt.save_checkpoint(state.train_state, save_path, tags,
                                  metadata={"tracker": tracker.state_dict()})
-    return state
