@@ -2,7 +2,7 @@
 """Drive vrvq_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
 Run from the repo root with no arguments: ``python3 chip_smoke.py``. It
-builds the kernels (one ``nvcc`` call), then runs fifteen phases and prints
+builds the kernels (one ``nvcc`` call), then runs sixteen phases and prints
 one line for each:
 
   device   the card's name and power limit, torch and CUDA versions, TF32 off,
@@ -45,6 +45,25 @@ one line for each:
            frames, mask agreement, decode SI-SDR of the fixture's codes,
            and as a control the same decode with TF32 convs, which must
            fall under the bar that the float32 decode clears;
+  packed   the time-packed layouts (``nn/layers.py``) on 4 seeded 10 s
+           clips, the padded one-shot codec: the turbo + packed-encoder
+           profile's compress (codes from K1, ``fast.encode_codes``)
+           against the turbo profile's on the same clips (flips on near
+           ties and others, mask agreement, decode SI-SDR, the latents'
+           largest relative difference), ``turbo_gate(encode_packed=True)``
+           on seeded clips; the fast decoder (bfloat16) with
+           ``decode_packed`` 1 and 2 and ``decode_packed_up`` 1 and 2, and
+           the folded float32 decoder with each of them, on the turbo
+           codes: the float32 ones against the unpacked float32 decoder
+           (60 dB), the bfloat16 ones against the float32 decode, as close
+           as the unpacked bfloat16 decoder is (0.05 dB), and against it
+           (40 dB); the working memory of every run; K2's
+           launches of every packed run no more than the unpacked run's;
+           real-time factors, device ms by class and kernel counts of each
+           profile (``profile_serve.one_shot``); K2 against its plain
+           version, timed, at every shape of every run's census
+           (bit-identical in the polynomial and bfloat16 modes), K1 on the
+           runs' calls and at 13,792 frames (16 x 10 s at once);
   eval     one seeded 3 s clip in each format (wav, flac with LPC
            subframes, mp3 where libmp3lame and libmpg123 load, m4a where the
            FFmpeg shim builds; named ``split_NNNN_<class>``), each read back:
@@ -158,7 +177,8 @@ census, the backward at the train step's); K2's forward and
 backward in the parallel phase's one-rank steps (the train step's census)
 and in its ranks' steps (a rank's census), K1 and K2 in its pool over the
 cards, timed at the pool's census; K2 over the evaluator's census, exact and
-fast, and over ``stream_demo``'s, K1 in ``stream_demo``), each
+fast, and over ``stream_demo``'s, K1 in ``stream_demo``; K2 in each mode
+over each packed phase run's census, K1 over its compresses), each
 with the launches of its path (counts cleared just before the path runs,
 read just after), the card's ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -189,6 +209,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch import kernel_times as kt
+from vrvq_tpu_torch import profile_serve
 from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
 from vrvq_tpu_torch.cli import evaluate as cli_eval
@@ -281,6 +302,23 @@ EVAL_LEVELS = "1,2"
 EVAL_REL = 1e-3  # eval.json's SI-SDR and mel, kernels against plain
 MIN_MP3_DB = 20.0  # tests/test_mp3.py's bar against the source
 MIN_AAC_DB = 15.0  # tests/test_mp4.py's, after aligning out the priming
+# the packed phase: the padded one-shot codec on seeded 10 s clips (batch 4:
+# at the JAX bench's batch 16 the phase would take minutes; profile_serve
+# --batch 16 and profile_stages measure that shape)
+PACKED_BATCH = 4
+PACKED_CLIP_S = 10.0
+PACKED_RVQ_FRAMES = 16 * RVQ_FRAMES  # 13,792: the one shot of 16 x 10 s
+DECODE_PACKINGS = {"decode_packed_1": dict(decode_packed=1),
+                   "decode_packed_2": dict(decode_packed=2),
+                   "decode_packed_up_1": dict(decode_packed_up=1),
+                   "decode_packed_up_2": dict(decode_packed_up=2)}
+# a packed bfloat16 decode's SI-SDR against the float32 decode may fall this
+# far under the unpacked bfloat16 decode's (H100 runs spread 0.004 dB), and
+# against the unpacked bfloat16 decode it must clear MIN_PACKED_BF16_DB
+# (H100 runs read 46.5 to 62.6 dB); each layout is also held in float32 to
+# the unpacked float32 decode at MIN_SISDR_DB
+MAX_BF16_LOSS_DB = 0.05
+MIN_PACKED_BF16_DB = 40.0
 
 
 _LAST_PHASE = [time.perf_counter()]
@@ -2293,6 +2331,168 @@ def last_card_checks(model, gen, last, cards: int):
     return out
 
 
+def packed_snake_rows(runs, gen):
+    """K2 against its plain version, timed, at every shape of each run's
+    census, by (run, mode): ms, plain and bound summed over the run's
+    census, the run's launches; every shape checked once. The polynomial
+    and bfloat16 modes bit-identical, the exact one within ``SNAKE_TOL``."""
+    checked, rows = {}, {}
+    with torch.inference_mode():
+        for run_name, run in runs.items():
+            for mode in sorted({m for m, _ in run["census"]}):
+                mode_census = of_mode(run["census"], mode)
+                checks = []
+                for shape in sorted(mode_census):
+                    if (mode, shape) not in checked:
+                        checked[mode, shape] = snake_check(shape, gen, mode)
+                        if mode != "snake":
+                            assert checked[mode, shape]["max_abs_err"] == 0.0, (
+                                mode, shape, checked[mode, shape])
+                    checks.append(checked[mode, shape])
+                rows[run_name, mode] = {**census_row(checks, mode_census),
+                                        "launches": run["launches"][mode]}
+    return rows, len(checked)
+
+
+def counted_memory(fn, *args):
+    """``counted(fn, *args)`` and the GiB its run held on the card beyond
+    what was allocated before it (its peak working memory)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = counted(fn, *args)
+    return out, (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def packed_phase(model, gen):
+    """The time-packed layouts at flagship width on ``PACKED_BATCH`` seeded
+    10 s clips, one shot (returns the kernel rows)."""
+    sr = model.sample_rate
+    audio = model.preprocess(torch.from_numpy(np.concatenate(
+        [port.synthetic_clip(PACKED_CLIP_S, sr, SEED + 300 + i)
+         for i in range(PACKED_BATCH)])).to(DEVICE))
+    seconds = PACKED_BATCH * PACKED_CLIP_S
+    encoders = {"turbo": fast.make_serving_model(model),
+                "turbo_packed": fast.make_serving_model(model, encode_packed=True)}
+    runs, rvq_log = {}, []
+    # compress, the main path of each encoder profile: counts cleared just
+    # before, read just after
+    for name, m in encoders.items():
+        with rvq_calls() as calls, torch.inference_mode():
+            ((codes, mask), launches, census), gib = counted_memory(
+                fast.encode_codes, m, audio, 1.0)
+        assert launches["rvq"] == 1 and calls[0][0] == PACKED_BATCH * RVQ_FRAMES, calls
+        rvq_log += calls
+        runs[name] = {"codes": codes, "mask": mask, "launches": launches,
+                      "census": census, "working_memory_gib": gib}
+    turbo, packed = runs["turbo"], runs["turbo_packed"]
+    for mode in {m for m, _ in turbo["census"]} | {m for m, _ in packed["census"]}:
+        assert packed["launches"].get(mode, 0) <= turbo["launches"].get(mode, 0), mode
+    with torch.inference_mode():
+        weights = rvq_ops.stack_quantizer_weights(model.quantizer)
+        near_tie, latents = None, {}
+        for name, m in encoders.items():
+            z = m.encoder(audio)
+            latents[name] = z
+            frames = z.transpose(1, 2).reshape(-1, z.shape[1])
+            tie = (rvq_ops.reference_margins(frames, *weights) <= TIE_MARGIN).reshape(
+                z.shape[0], z.shape[-1]).cpu().numpy()
+            near_tie = tie if near_tie is None else near_tie | tie
+        latent_rel = float((latents["turbo_packed"] - latents["turbo"]).abs().max()
+                           / latents["turbo"].abs().max())
+        decoder = encoders["turbo"]  # the fast decoder
+        rec = {name: decoder.decode_from_codes(r["codes"].long(), r["mask"]).cpu().numpy()
+               for name, r in runs.items()}
+    split = flips(packed["codes"].cpu().numpy(), turbo["codes"].cpu().numpy(), near_tie)
+    mask_agree = float((packed["mask"] == turbo["mask"]).float().mean())
+    encode_sdr = si_sdr(rec["turbo_packed"], rec["turbo"])
+    assert mask_agree >= 0.999 and encode_sdr >= MIN_FAST_DB, (mask_agree, encode_sdr)
+    gate = fast.turbo_gate(model, clips=fast.synthetic_probe(sr, SEED), encode_packed=True)
+    # JAX's test_packed.py asks finite numbers; a decode with no flip agrees
+    # to inf dB
+    assert np.isfinite(gate.mask_agreement) and 0.0 <= gate.code_flip_rate <= 1.0, gate
+    assert not np.isnan(gate.agreement_db), gate
+
+    # decompress: the fast decoder (bfloat16) and the folded float32 one,
+    # unpacked and packed, on the turbo profile's codes
+    codes, mask = turbo["codes"].long(), turbo["mask"]
+    decoders = {"fast": fast.make_inference_model(model),
+                "fast_f32": fast.make_inference_model(model, decode_dtype=None)}
+    for name, kw in DECODE_PACKINGS.items():
+        decoders[name] = fast.make_inference_model(model, **kw)
+        decoders[f"{name}_f32"] = fast.make_inference_model(
+            model, decode_dtype=None, **kw)
+    decode = {}
+    for name, m in decoders.items():
+        with torch.inference_mode():
+            (out, launches, census), gib = counted_memory(m.decode_from_codes, codes, mask)
+        base = "fast_f32" if name.endswith("f32") else "fast"
+        runs[name] = {"launches": launches, "census": census, "working_memory_gib": gib}
+        decode[name] = {"audio": out.cpu().numpy(), "base": base}
+    # float32: the packed decode against the unpacked one of the same dtype
+    # at the card's bar, which isolates the layout. bfloat16 rounds every
+    # conv's output, so another order of sums moves the decode by more: a
+    # packed bfloat16 decode is held to the float32 decode, as close as the
+    # unpacked bfloat16 decode is (within MAX_BF16_LOSS_DB), and reported
+    # against the unpacked one
+    decode_db, to_f32_db = {}, {}
+    for name, d in decode.items():
+        to_f32_db[name] = si_sdr(d["audio"], decode["fast_f32"]["audio"])
+        if name in ("fast", "fast_f32"):
+            continue
+        base = runs[d["base"]]
+        for mode in {m for m, _ in runs[name]["census"]}:
+            assert runs[name]["launches"][mode] <= base["launches"].get(mode, 0), (name, mode)
+        decode_db[name] = si_sdr(d["audio"], decode[d["base"]]["audio"])
+    for name, db in decode_db.items():
+        if decode[name]["base"] == "fast_f32":
+            assert db >= MIN_SISDR_DB, (name, db)
+        else:
+            assert to_f32_db[name] >= to_f32_db["fast"] - MAX_BF16_LOSS_DB, (
+                name, to_f32_db)
+            assert db >= MIN_PACKED_BF16_DB, (name, db)
+
+    # real-time factors and device ms by class (host clock, then one trace)
+    timing = {}
+    for name, m in encoders.items():
+        t = profile_serve.one_shot(m, audio, parts=("compress",))
+        timing[name] = t["compress"]
+    for name, m in decoders.items():
+        t = profile_serve.one_shot(m, audio, parts=("decompress",))
+        timing[name] = t["decompress"]
+    del encoders, decoders
+    torch.cuda.empty_cache()
+
+    snake_rows, n_shapes = packed_snake_rows(runs, gen)
+    with torch.inference_mode():
+        rvq_one_shot = rvq_stream_row(rvq_log, len(rvq_log), gen)
+        rvq_b16 = rvq_check(weights, gen, PACKED_RVQ_FRAMES)
+    phase("packed", batch=PACKED_BATCH, clip_s=PACKED_CLIP_S,
+          encode_packed_against_turbo={**split, "mask_agreement": mask_agree,
+                                       "decode_si_sdr_db": encode_sdr,
+                                       "latent_max_rel_diff": latent_rel},
+          turbo_gate_packed={k: v for k, v in gate.__dict__.items()},
+          decode_si_sdr_db_against_unpacked=decode_db,
+          decode_si_sdr_db_against_float32=to_f32_db,
+          launches={name: r["launches"] for name, r in runs.items()},
+          working_memory_gib={name: r["working_memory_gib"] for name, r in runs.items()},
+          device_kernels={name: t["device_kernels"] for name, t in timing.items()},
+          rtf={name: t["rtf"] for name, t in timing.items()},
+          host_s={name: t["s"] for name, t in timing.items()},
+          device_ms={name: t["device_ms"] for name, t in timing.items()},
+          device_ms_by_class={name: t["device_ms_by_class"] for name, t in timing.items()},
+          snake_shapes_checked=n_shapes,
+          snake_by_run={f"{mode}:{run}": {k: row[k] for k in (
+              "launches", "shapes", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+              for (run, mode), row in snake_rows.items()},
+          rvq_one_shot=rvq_one_shot,
+          rvq_b16={k: rvq_b16[k] for k in ("frames", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "vbr_flipped_frames",
+                                           "cbr_flipped_frames", "max_abs_err")},
+          audio_s=seconds)
+    return snake_rows, rvq_one_shot, rvq_b16
+
+
 def kernel_row(name, mode_row, **fields):
     return {"name": name, "route": "cuda", "library_ms": None,
             "bound_by": "bytes", **fields,
@@ -2335,6 +2535,7 @@ def main() -> int:
     pool_launches, pool, pool_snake = pool_phase(model, gen)
     entropy_phase(model, serve_dac, pool["chunks"])
     reference_phase(model)
+    packed_snake, packed_rvq, packed_rvq_b16 = packed_phase(model, gen)
     del model
     torch.cuda.empty_cache()
     eval_rows = eval_phase(gen, census)
@@ -2505,6 +2706,21 @@ def main() -> int:
                 f"mean launch over its calls (frames: launches "
                 f"{stream_rvq['frames']})"},
     ]
+    for (run, mode), row in packed_snake.items():
+        kernels.append(kernel_row(
+            f"{mode}_{run}", row, **source,
+            per=f"packed phase, {run}, one shot of {PACKED_BATCH} x "
+                f"{PACKED_CLIP_S:g} s: {row['launches']} launches over "
+                f"{row['shapes']} shapes"))
+    kernels.append(
+        {"name": "fused_rvq_one_shot", "route": "cuda", **rvq_source,
+         **{k: packed_rvq[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")},
+         "library_ms": None,
+         "per": f"packed phase: one launch a compress at {PACKED_BATCH} x "
+                f"{RVQ_FRAMES} frames (turbo and turbo_packed)",
+         "b16_one_shot": {k: packed_rvq_b16[k] for k in (
+             "frames", "ms", "plain_ms", "bound_ms", "max_abs_err")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

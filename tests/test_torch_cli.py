@@ -30,7 +30,7 @@ from vrvq_tpu.train.checkpoint import export_torch_state_dict
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.cli import inference as cli_inference
 from vrvq_tpu_torch.cli import train as cli_train
-from vrvq_tpu_torch.config import Config
+from vrvq_tpu_torch.config import Config, model_config
 from vrvq_tpu_torch.convert import state_dict_from_jax
 from vrvq_tpu_torch.data import loaders as tloaders
 from vrvq_tpu_torch.data import transforms as ttransforms
@@ -152,13 +152,25 @@ def test_cli_inference_writes_the_sweep(tiny, runs):
 
 def test_unported_config_keys_raise_with_their_names(tiny, tmp_path):
     """Repair (a): each of these keys used to be ignored without a word.
-    (``remat`` and the multi-host flags are ported: see the next test.)"""
-    for extra, name in ((["--DAC_VRVQ.encoder_packed", "true"], "DAC_VRVQ.encoder_packed"),
+    (``remat`` and the multi-host flags are ported: see the next test; the
+    packing keys train: ``test_encoder_packed_trains_a_step``.)"""
+    for extra, name in ((["--DAC_VRVQ.encoder_packing", "true"], "DAC_VRVQ.encoder_packing"),
                         (["--Discriminator.channels", "32"], "Discriminator.channels"),
                         (["--zero", "true"], "zero")):
         with pytest.raises(NotImplementedError, match=name):
             cli_train.main(_argv(tiny, tmp_path / name, *extra))
         assert not (tmp_path / name).exists()
+
+
+def test_encoder_packed_trains_a_step(tiny, tmp_path):
+    """``--DAC_VRVQ.encoder_packed true`` (a key JAX's trainer reads) trains
+    one step with the time-packed first encoder stage."""
+    out = cli_train.main(_argv(tiny, tmp_path / "p", "--num_iters", "1",
+                               "--DAC_VRVQ.encoder_packed", "true"))
+    assert out["steps"] == 1
+    assert all(np.isfinite(v) for v in out["metrics"][0].values())
+    cfg = Config.load(tiny / "tiny.yml", overrides={"DAC_VRVQ.encoder_packed": True})
+    assert port.DAC_VRVQ(model_config(cfg)).encoder.packed
 
 
 def test_remat_trains_and_multi_host_flags_reach_init_distributed(tiny, tmp_path,

@@ -215,6 +215,9 @@ BLOCKER = textwrap.dedent("""
     assert evaluation <= walked, sorted(evaluation - walked)
     edge = {"vrvq_tpu_torch." + m for m in ("native", "native.io", "cli.export_torch")}
     assert edge <= walked, sorted(edge - walked)
+    packed = {"vrvq_tpu_torch." + m for m in ("utils", "profile_stages", "profile_serve",
+                                              "nn.layers", "audio")}
+    assert packed <= walked, sorted(packed - walked)
     import chip_smoke
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

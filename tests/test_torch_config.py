@@ -102,9 +102,14 @@ def test_model_config_of_every_config():
     assert fast.encoder_snake_approx and fast.decoder_snake_approx
     wide = tconfig.model_config(Config({**flagship.to_dict(), "DAC_VRVQ.latent_dim": 512}))
     assert (wide.latent_dim, wide.resolved_latent_dim) == (512, 512)
-    with pytest.raises(NotImplementedError, match="DAC_VRVQ.encoder_packed"):
+    packed = tconfig.model_config(Config({**flagship.to_dict(),
+                                          "DAC_VRVQ.encoder_packed": True,
+                                          "DAC_VRVQ.decoder_packed": 2}))
+    assert (packed.encoder_packed, packed.decoder_packed, packed.decoder_packed_up) == (
+        True, 2, 0)
+    with pytest.raises(NotImplementedError, match="DAC_VRVQ.encoder_packing"):
         tconfig.model_config(Config({**flagship.to_dict(),
-                                     "DAC_VRVQ.encoder_packed": True}))
+                                     "DAC_VRVQ.encoder_packing": True}))
 
 
 BLOCKED_YAML = textwrap.dedent("""

@@ -768,3 +768,66 @@ def test_msd_step_and_samples_default_to_the_card(cuda, tmp_path):
     assert "loss/train" in events and "imp_map/sample_1" in events, sorted(events)
     assert ("recons/sample_0.wav" in events
             or (tmp_path / "run" / "logs" / "samples" / "recons_1_0.wav").exists())
+
+
+def test_packed_profile_defaults_to_the_card(cuda):
+    """The turbo + packed-encoder profile and a packed fast decoder of a
+    codec built with no device: every parameter and buffer on the
+    card, the one-shot codec through K1 and K2 there, the packed decode
+    within 60 dB of the unpacked fast decoder's."""
+    from vrvq_tpu_torch.infer import fast
+
+    model = port.build_model(port.small_config())
+    sm = fast.make_serving_model(model, encode_packed=True, decode_packed=2)
+    assert all(t.is_cuda for t in (*sm.parameters(), *sm.buffers()))
+    x = torch.from_numpy(port.synthetic_clip(1.0, 44100, 5)[..., :44032]).cuda()
+    LAUNCHES.clear()
+    with torch.inference_mode():
+        codes, mask = fast.encode_codes(sm, x, 1.0)
+        audio = sm.decode_from_codes(codes.long(), mask)
+        ref = fast.make_inference_model(model).decode_from_codes(codes.long(), mask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rvq"] == 1 and LAUNCHES["snake_approx"] > 0, dict(LAUNCHES)
+    assert LAUNCHES["snake_approx_bf16"] > 0, dict(LAUNCHES)
+    err = ((audio - ref).double() ** 2).sum() / (ref.double() ** 2).sum()
+    assert 10 * torch.log10(err).item() <= -60.0
+
+
+def test_packed_block_0_launches_as_many_snakes(cuda):
+    """The packed encoder's ``block_0`` launches K2 as often as the
+    unpacked one (the tiled alpha adds no launch), at the packed shape,
+    bit-identical to the plain version."""
+    from vrvq_tpu_torch import kernel_times as kt
+    from vrvq_tpu_torch.infer import fast
+
+    model = port.build_model(port.FLAGSHIP, device=cuda, seed=0)
+    x = torch.from_numpy(port.synthetic_clip(1.0, 44100, 6)[..., :44032]).to(cuda)
+    counts = {}
+    for name, m in (("unpacked", fast.make_serving_model(model)),
+                    ("packed", fast.make_serving_model(model, encode_packed=True))):
+        with torch.inference_mode(), kt.snake_census(m.encoder.block_0) as census:
+            LAUNCHES.clear()
+            m.encoder(x)
+            torch.cuda.synchronize()
+        counts[name] = (LAUNCHES["snake_approx"], dict(census))
+    assert counts["packed"][0] == counts["unpacked"][0] > 0
+    assert set(counts["packed"][1]) == {(1, 128, 22016)}, counts
+    assert sum(counts["packed"][1].values()) == sum(counts["unpacked"][1].values()) == 7
+    gen = torch.Generator().manual_seed(1)
+    xp = (3.0 * torch.randn(1, 128, 22016, generator=gen)).to(cuda)
+    alpha = (0.5 + torch.rand(64, generator=gen)).repeat(2).to(cuda)
+    with torch.inference_mode():
+        assert torch.equal(snake.snake(xp, alpha, True), snake.snake_plain(xp, alpha, True))
+
+
+def test_padding_free_clone_of_a_packed_model_raises(cuda):
+    """A packed codec has no padding-free variant on the card either:
+    ``clone(padding=False)`` and ``CodecProcessor`` raise ``ValueError``."""
+    import dataclasses
+
+    packed = port.build_model(dataclasses.replace(port.small_config(), encoder_packed=True),
+                              device=cuda)
+    with pytest.raises(ValueError, match="packed encoder requires padding=True"):
+        packed.clone(padding=False)
+    with pytest.raises(ValueError, match="packed encoder requires padding=True"):
+        port.CodecProcessor(packed)

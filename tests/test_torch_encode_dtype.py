@@ -72,7 +72,8 @@ def test_profile_folds_the_encoder_into_bf16(pair):
         encoder_folded=True, decoder_folded=True,
         decoder_compute_dtype=torch.bfloat16,
         encoder_compute_dtype=torch.bfloat16, decoder_snake_approx=True,
-        encoder_snake_approx=False)
+        encoder_snake_approx=False, encoder_packed=False, decoder_packed=0,
+        decoder_packed_up=0)
     assert bf.encoder.block_1.res0.conv1.w.dtype == torch.bfloat16
     assert bf.encoder.block_1.snake.alpha.dtype == torch.float32
     assert not hasattr(bf.encoder.in_conv, "v")

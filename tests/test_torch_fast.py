@@ -197,15 +197,23 @@ def test_snake_approx_decode_quality(tiny):
 def test_serving_model_is_turbo_profile(pair):
     _, _, tm = pair
     sm = fast.make_serving_model(tm)
+    # as JAX's make_inference_model, the profile sets the packing fields
+    # (unpacked by default) whatever the config says
     assert sm.profile == Profile(
         decoder_folded=True, decoder_compute_dtype=torch.bfloat16,
-        encoder_snake_approx=True, decoder_snake_approx=True)
+        encoder_snake_approx=True, decoder_snake_approx=True,
+        encoder_packed=False, decoder_packed=0, decoder_packed_up=0)
     for a, b in zip(tm.quantizer.parameters(), sm.quantizer.parameters()):
         assert a.data_ptr() == b.data_ptr()
-    for unported in (dict(encode_packed=True), dict(decode_packed=1),
-                     dict(decode_packed_up=1)):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
-            fast.make_inference_model(tm, **unported)
+    # the packed variants: the turbo profile with JAX's packing fields, on
+    # the same quantizer tensors
+    for packing, field in ((dict(encode_packed=True), dict(encoder_packed=True)),
+                           (dict(decode_packed=1), dict(decoder_packed=1)),
+                           (dict(decode_packed_up=1), dict(decoder_packed_up=1))):
+        pm = fast.make_serving_model(tm, **packing)
+        assert pm.profile == dataclasses.replace(sm.profile, **field)
+        assert (pm.quantizer.quantizers[0].codebook.data_ptr()
+                == tm.quantizer.quantizers[0].codebook.data_ptr())
     with pytest.raises(ValueError, match="live model"):
         fast.make_inference_model(sm)
 

@@ -10,22 +10,40 @@ both packages hand the codec the same samples. Files of every format of
 ``data/audio_io.AUDIO_EXTENSIONS`` (wav, flac, mp3, mp4, m4a) load through
 ``read_audio`` and ``audio_info``; ``write`` writes 16-bit PCM wav through
 ``write_wav``; ``resample`` goes through scipy's polyphase filter
-(``ops/resample.py``).
+(``ops/resample.py``). The spectral views (``stft``, ``magnitude``,
+``log_magnitude``, ``mel_spectrogram``) go through ``ops/stft.py`` with the
+signal's ``STFTParams`` (audiotools' defaults) and return torch tensors on
+the CPU, where the samples are.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .data.audio_io import audio_info, read_audio, write_wav
 from .native import io as native_io
 from .ops.loudness import integrated_loudness
+from .ops import stft as stft_ops
 from .ops.resample import resample_poly_np
 
 GAIN_FACTOR = np.log(10) / 20
 """Multiply gain in dB by this to get the natural-log gain factor."""
+
+
+@dataclasses.dataclass
+class STFTParams:
+    """The STFT's settings (audiotools' ``STFTParams`` defaults)."""
+
+    window_length: int = 2048
+    hop_length: int = 512
+    window_type: Optional[str] = None
+    match_stride: bool = False
+    padding_type: str = "reflect"
 
 
 def random_state(state) -> np.random.RandomState:
@@ -36,10 +54,14 @@ def random_state(state) -> np.random.RandomState:
 
 
 class Signal:
-    """Batched audio: ``audio_data`` (B, C, T), ``sample_rate`` in Hz, and a
-    ``metadata`` dict (the excerpt's path, offset and duration)."""
+    """Batched audio: ``audio_data`` (B, C, T), ``sample_rate`` in Hz, the
+    ``stft_params`` of its spectral views (by default a window of 32 ms
+    rounded up to a power of two, hop a quarter of it: 2048 / 512 at
+    44.1 kHz, as audiotools), and a ``metadata`` dict (the excerpt's path,
+    offset and duration)."""
 
     def __init__(self, audio_data, sample_rate: int,
+                 stft_params: Optional[STFTParams] = None,
                  metadata: Optional[dict] = None):
         audio_data = np.asarray(audio_data)
         if audio_data.ndim == 1:
@@ -50,7 +72,12 @@ class Signal:
             raise ValueError(f"audio_data must be 1/2/3-D, got {audio_data.ndim}")
         self.audio_data = audio_data
         self.sample_rate = int(sample_rate)
+        if stft_params is None:
+            window = 2 ** int(math.ceil(math.log2(0.032 * self.sample_rate)))
+            stft_params = STFTParams(window_length=window, hop_length=window // 4)
+        self.stft_params = stft_params
         self.metadata = dict(metadata or {})
+        self.stft_data = None
 
     @property
     def batch_size(self) -> int:
@@ -70,7 +97,10 @@ class Signal:
 
     def clone(self) -> "Signal":
         return Signal(np.array(self.audio_data), self.sample_rate,
-                      dict(self.metadata))
+                      self.stft_params, dict(self.metadata))
+
+    def numpy(self) -> np.ndarray:
+        return np.asarray(self.audio_data)
 
     @classmethod
     def zeros(cls, duration: float, sample_rate: int, num_channels: int = 1,
@@ -166,8 +196,52 @@ class Signal:
         """An audio file of any supported format (or ``duration`` seconds of
         it from ``offset``) as float32 in [-1, 1]."""
         data, sr = read_audio(path, offset=offset, duration=duration)
-        return cls(data[None], sr, {"path": str(path), "offset": offset,
-                                    "duration": duration})
+        return cls(data[None], sr, metadata={"path": str(path), "offset": offset,
+                                             "duration": duration})
+
+    # ------------------------------------------------------------- spectral
+    def _samples(self) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(self.audio_data))
+
+    def stft(self, window_length: Optional[int] = None,
+             hop_length: Optional[int] = None,
+             window_type: Optional[str] = None,
+             match_stride: Optional[bool] = None) -> torch.Tensor:
+        """The complex STFT (B, C, n_fft / 2 + 1, frames), each setting the
+        signal's ``stft_params`` unless given; kept as ``stft_data``."""
+        p = self.stft_params
+        self.stft_data = stft_ops.stft(
+            self._samples(), window_length or p.window_length,
+            hop_length or p.hop_length,
+            window_type if window_type is not None else p.window_type,
+            match_stride if match_stride is not None else p.match_stride)
+        return self.stft_data
+
+    @property
+    def magnitude(self) -> torch.Tensor:
+        """``|stft_data|``, the STFT taken first if there is none."""
+        if self.stft_data is None:
+            self.stft()
+        return torch.abs(self.stft_data)
+
+    def log_magnitude(self, ref_value: float = 1.0,
+                      amin: float = 1e-5) -> torch.Tensor:
+        """``20 log10(max(|STFT|, amin) / ref_value)``."""
+        return 20.0 * torch.log10(torch.clamp(self.magnitude, min=amin) / ref_value)
+
+    def mel_spectrogram(self, n_mels: int = 80, mel_fmin: float = 0.0,
+                        mel_fmax: Optional[float] = None,
+                        **kwargs) -> torch.Tensor:
+        """The slaney mel spectrogram (B, C, n_mels, frames); ``kwargs``
+        override ``stft_params``' window_length, hop_length, window_type and
+        match_stride."""
+        p = self.stft_params
+        return stft_ops.mel_spectrogram(
+            self._samples(), self.sample_rate, n_mels,
+            kwargs.get("window_length", p.window_length),
+            kwargs.get("hop_length", p.hop_length),
+            kwargs.get("window_type", p.window_type),
+            kwargs.get("match_stride", p.match_stride), mel_fmin, mel_fmax)
 
     def write(self, path) -> "Signal":
         """Write the first batch item as a 16-bit PCM wav."""

@@ -412,7 +412,11 @@ class ModelConfig:
     gradient at its input. ``compute_dtype`` is the conv stacks' dtype when
     serving (``float32`` or ``bfloat16``; the quantizer stays float32, as in
     the JAX model): ``infer/fast.serving_model`` maps it onto a ``Profile``,
-    and training takes float32 only."""
+    and training takes float32 only. ``encoder_packed``, ``decoder_packed``
+    and ``decoder_packed_up`` run the first encoder stage, the last decoder
+    blocks with the tail, or only those blocks' transposed convs in the
+    time-packed layout (``nn/layers.py``): the same function of the same
+    parameters, on the padded codec only."""
 
     sample_rate: int = 44100
     encoder_dim: int = 64
@@ -436,6 +440,9 @@ class ModelConfig:
     encoder_snake_approx: bool = False
     decoder_snake_approx: bool = False
     compute_dtype: str = "float32"
+    encoder_packed: bool = False
+    decoder_packed: int = 0
+    decoder_packed_up: int = 0
 
     def __post_init__(self):
         if self.model_type not in ("VBR", "CBR"):
@@ -473,8 +480,8 @@ def model_config(cfg: Config) -> ModelConfig:
     unknown = sorted(set(kw) - fields)
     if unknown:
         raise NotImplementedError(
-            f"DAC_VRVQ keys not ported: {['DAC_VRVQ.' + k for k in unknown]} "
-            "(ROADMAP Queue A)")
+            f"DAC_VRVQ keys the port does not implement: "
+            f"{['DAC_VRVQ.' + k for k in unknown]}")
     for key in ("encoder_rates", "decoder_rates"):
         if key in kw:
             kw[key] = tuple(kw[key])

@@ -15,7 +15,14 @@ Counterpart of ``vrvq_tpu/infer/fast.py``, with the same defaults:
   * ``make_serving_model`` (turbo): the fast profile plus the polynomial
     Snake in the encoder, which moves latents by float32 rounding, so near
     ties may flip. Serve it only behind ``turbo_gate`` on your checkpoint
-    and audio.
+    and audio. With ``encode_packed=True`` (the JAX package's serving
+    headline, turbo + packed encoder) the encoder's first stage runs in the
+    time-packed layout (``nn/layers.py``): the same sums in another order,
+    so latents move by float32 rounding too; gate it with
+    ``turbo_gate(model, encode_packed=True)``.
+  * ``decode_packed`` / ``decode_packed_up``: the decoder's last blocks and
+    tail, or only those blocks' transposed convs, time-packed. Codes are
+    untouched; the decode moves by rounding.
 
   * ``make_inference_model(encode_dtype=torch.bfloat16)``: the encoder
     folded into bfloat16 kernels and computed in bfloat16, its latents and
@@ -33,9 +40,10 @@ with that field.
 
 They take a live ``DAC_VRVQ`` or ``DAC_MOE`` and return a new one of the
 same class on the same device; the quantizer's tensors are shared with the
-given model, never copied or folded. The time-packed layouts
-(``encode_packed``, ``decode_packed``, ``decode_packed_up``) are not ported
-and raise.
+given model, never copied or folded. As in the JAX package, the packing
+arguments set the profile's layouts whatever the config says, and a packed
+profile serves the padded codec only: ``CodecProcessor``, streams and
+``chunked`` need ``clone(padding=False)``, which raises for it.
 """
 
 from __future__ import annotations
@@ -87,11 +95,11 @@ def make_inference_model(
     folds the encoder into kernels of that dtype.
     ``snake_approx``: the polynomial Snake in the decoder.
     ``encode_snake_approx``: in the encoder too (the turbo profile).
-    ``fold_encoder``: fold the encoder's weight norm."""
-    if encode_packed or decode_packed or decode_packed_up:
-        raise NotImplementedError(
-            "the time-packed layouts (encode_packed, decode_packed, "
-            "decode_packed_up) are not ported: ROADMAP Queue A item 9")
+    ``fold_encoder``: fold the encoder's weight norm.
+    ``encode_packed``: the encoder's first stage time-packed.
+    ``decode_packed``: the last ``decode_packed`` decoder blocks and the
+    tail time-packed; ``decode_packed_up``: only the last blocks'
+    transposed convs (the two are exclusive)."""
     if model.profile != Profile():
         raise ValueError("make_inference_model takes the live model")
     fold_encoder = fold_encoder or encode_dtype is not None
@@ -102,6 +110,9 @@ def make_inference_model(
         encoder_compute_dtype=_dtype(encode_dtype),
         encoder_snake_approx=encode_snake_approx,
         decoder_snake_approx=snake_approx,
+        encoder_packed=encode_packed,
+        decoder_packed=decode_packed,
+        decoder_packed_up=decode_packed_up,
     )
     state = _folded(model.state_dict(), "decoder.",
                     None if decoder_dtype is None else _dtype(decoder_dtype))
@@ -114,25 +125,30 @@ def make_inference_model(
 def serving_model(model: DAC_VRVQ, fast: bool) -> DAC_VRVQ:
     """``model`` (live) as its config serves it: with ``fast`` the fast
     profile (its encoder in the config's ``compute_dtype`` where that is
-    bfloat16), else the live model, or where ``compute_dtype`` is bfloat16
-    both conv stacks folded into bfloat16 with the config's Snakes."""
-    dtype = model.config.compute_dtype
-    encode_dtype = None if dtype == "float32" else dtype
+    bfloat16; unpacked, as JAX's ``make_inference_model`` leaves it), else
+    the live model, or where ``compute_dtype`` is bfloat16 both conv stacks
+    folded into bfloat16 with the config's Snakes and packing."""
+    config = model.config
+    encode_dtype = None if config.compute_dtype == "float32" else config.compute_dtype
     if fast:
         return make_inference_model(model, encode_dtype=encode_dtype)
     if encode_dtype is None:
         return model
     return make_inference_model(
         model, decode_dtype=None, encode_dtype=encode_dtype,
-        snake_approx=model.config.decoder_snake_approx,
-        encode_snake_approx=model.config.encoder_snake_approx)
+        snake_approx=config.decoder_snake_approx,
+        encode_snake_approx=config.encoder_snake_approx,
+        encode_packed=config.encoder_packed, decode_packed=config.decoder_packed,
+        decode_packed_up=config.decoder_packed_up)
 
 
 def make_serving_model(model: DAC_VRVQ, encode_packed: bool = False,
                        decode_packed: int = 0,
                        decode_packed_up: int = 0) -> DAC_VRVQ:
     """The turbo profile: the fast profile plus the polynomial Snake in the
-    live float32 encoder. Gate it with ``turbo_gate`` before serving."""
+    live float32 encoder, with the packing arguments of
+    ``make_inference_model`` (``encode_packed=True``: turbo + packed
+    encoder). Gate it with ``turbo_gate`` before serving."""
     return make_inference_model(model, encode_snake_approx=True,
                                 encode_packed=encode_packed,
                                 decode_packed=decode_packed,
@@ -225,7 +241,8 @@ def turbo_gate(
     """Accuracy gate for the turbo profile of ``model`` (live).
 
     Encodes ``clips`` (B, 1, T) with the exact-codes fast profile and with
-    the turbo one, decodes both code streams with the fast decoder, and
+    the turbo one (``serving_kwargs`` go to ``make_serving_model``: say
+    ``encode_packed=True``), decodes both code streams with the fast decoder, and
     measures the agreement of the two decodes (dB), of the VBR masks, and
     the flip rate of the codes both masks keep. ``passed`` when
     ``agreement_db >= min_agreement_db`` and ``mask_agreement >=

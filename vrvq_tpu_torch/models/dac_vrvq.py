@@ -7,13 +7,17 @@ audio ``(B, 1, T)``, latents ``(B, D, T')``, codes ``(B, Nq, T')``.
 runs; ``clone(padding=...)`` gives the other variant on the same parameters.
 A ``Profile`` sets how the conv stacks run at inference (the JAX model's
 inference fields, ``vrvq_tpu/models/dac_vrvq.py``): folded weight norm,
-the polynomial Snake and the compute dtype, per stack; ``infer/fast.py``
-builds the fast and turbo profiles. An encoder computing in bfloat16 hands
+the polynomial Snake, the compute dtype and the time-packed layouts, per
+stack; ``infer/fast.py`` builds the fast and turbo profiles. An encoder computing in bfloat16 hands
 its latents and feature to the quantizer in float32, as the JAX encoder
 does. A stack's Snake is the config's
 (``encoder_snake_approx``, ``decoder_snake_approx``, which training runs
 too) unless the profile sets it. The quantizer, with the importance subnet,
-always runs live in float32 with the exact Snake. ``forward(...,
+always runs live in float32 with the exact Snake. The time-packed layouts
+(``encoder_packed``, ``decoder_packed``, ``decoder_packed_up``: the config's
+unless the profile sets them) compute the same sums over the same
+parameters; they need the padded codec, so ``clone(padding=False)`` of a
+packed model raises, as the JAX model fails when applied. ``forward(...,
 train=True)`` is the training forward: the quantizer's random draws (VBR:
 levels and the batch partition; CBR: quantizer dropout) with its losses.
 """
@@ -29,7 +33,8 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..nn.layers import DecoderBlock, EncoderBlock, Snake1d, WNConv1d
+from ..nn.layers import (DecoderBlock, EncoderBlock, Snake1d, WNConv1d,
+                         pack_time, unpack_time)
 from . import codec
 from .quantize import ResidualVectorQuantize, VBRResidualVectorQuantize
 
@@ -38,8 +43,8 @@ from .quantize import ResidualVectorQuantize, VBRResidualVectorQuantize
 class Profile:
     """How each conv stack runs at inference. The defaults are the live
     exact codec. A compute dtype other than float32 needs its stack folded
-    (its kernels are stored in that dtype). A Snake field left ``None``
-    takes the config's."""
+    (its kernels are stored in that dtype). A Snake or packing field left
+    ``None`` takes the config's."""
 
     encoder_folded: bool = False
     decoder_folded: bool = False
@@ -47,28 +52,44 @@ class Profile:
     encoder_compute_dtype: torch.dtype = torch.float32
     encoder_snake_approx: Optional[bool] = None
     decoder_snake_approx: Optional[bool] = None
+    encoder_packed: Optional[bool] = None
+    decoder_packed: Optional[int] = None
+    decoder_packed_up: Optional[int] = None
 
 
 class Encoder(nn.Module):
     """k=7 in conv -> EncoderBlocks (width doubles at each stride) -> Snake ->
     k=3 out conv. (B, 1, T) -> (B, latent_dim, T'), float32 whatever
-    ``dtype`` the stack computes in."""
+    ``dtype`` the stack computes in. ``packed``: the input is packed by 2,
+    the in conv and ``block_0`` run packed and ``block_0``'s strided conv
+    consumes the packing (needs padding, a first stride of 2 and an even
+    input length)."""
 
     def __init__(self, d_model: int, strides: Sequence[int], latent_dim: int,
                  padding: bool = True, folded: bool = False,
                  snake_approx: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, packed: bool = False):
         super().__init__()
+        if packed and (not padding or not strides or strides[0] != 2):
+            raise ValueError(
+                "packed encoder requires padding=True, strides[0] == 2 and "
+                f"an even input length (got strides={tuple(strides)}, "
+                f"padding={padding})")
         pad_mode = "zeros" if padding else "none"
         self.dtype = dtype
+        self.packed = packed
+        self.strides = tuple(strides)
+        tp = 2 if packed else 1
         self.in_conv = WNConv1d(1, d_model, 7, padding=3, pad_mode=pad_mode,
-                                folded=folded, dtype=dtype)
+                                folded=folded, dtype=dtype, time_pack_in=tp,
+                                time_pack_out=tp)
         self.n_blocks = len(strides)
         d = d_model
         for i, stride in enumerate(strides):
             d *= 2
             self.add_module(f"block_{i}", EncoderBlock(
-                d, stride, padding, folded, snake_approx, dtype))
+                d, stride, padding, folded, snake_approx, dtype,
+                tp if i == 0 else 1))
         self.snake = Snake1d(d, snake_approx)
         self.out_conv = WNConv1d(d, latent_dim, 3, padding=1, pad_mode=pad_mode,
                                  folded=folded, dtype=dtype)
@@ -76,7 +97,15 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, return_feat: bool = False):
         """With ``return_feat`` also the activation after the last block,
         which feeds the importance subnet (both float32)."""
-        x = self.in_conv(x.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.packed:
+            if x.shape[-1] % 2:
+                raise ValueError(
+                    "packed encoder requires padding=True, strides[0] == 2 and "
+                    f"an even input length (got strides={self.strides}, "
+                    f"T={x.shape[-1]})")
+            x = pack_time(x, 2)
+        x = self.in_conv(x)
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
         feat = x
@@ -89,37 +118,56 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     """k=7 in conv -> DecoderBlocks (width halves at each rate) -> Snake ->
     k=7 out conv -> tanh. (B, latent, T') -> (B, 1, T), float32 whatever
-    ``dtype`` the stack computes in."""
+    ``dtype`` the stack computes in. ``packed_blocks``: the last blocks and
+    the tail run packed (the packing grows by each block's stride), and the
+    output is unpacked after the out conv; ``packed_up_blocks``: only the
+    last blocks' transposed convs run packed, each unpacked at once."""
 
     def __init__(self, input_channel: int, channels: int, rates: Sequence[int],
                  d_out: int = 1, padding: bool = True, folded: bool = False,
                  snake_approx: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, packed_blocks: int = 0,
+                 packed_up_blocks: int = 0):
         super().__init__()
+        if packed_blocks and packed_up_blocks:
+            raise ValueError("packed_blocks and packed_up_blocks are "
+                             "exclusive")
+        if (packed_blocks or packed_up_blocks) and not padding:
+            raise ValueError("packed decoder requires padding=True")
         pad_mode = "zeros" if padding else "none"
         self.dtype = dtype
         self.in_conv = WNConv1d(input_channel, channels, 7, padding=3,
                                 pad_mode=pad_mode, folded=folded, dtype=dtype)
         self.n_blocks = len(rates)
         output_dim = channels
+        pack = 1
         for i, stride in enumerate(rates):
             input_dim = channels // (2 ** i)
             output_dim = channels // (2 ** (i + 1))
+            packed = i >= self.n_blocks - packed_blocks
             self.add_module(f"block_{i}", DecoderBlock(
                 input_dim, output_dim, stride, padding, folded, snake_approx,
-                dtype))
-        self.snake = Snake1d(output_dim, snake_approx)
+                dtype, packed=packed, time_pack_in=pack,
+                packed_up_only=i >= self.n_blocks - packed_up_blocks))
+            if packed:
+                pack *= stride
+        self.pack = pack
+        self.snake = Snake1d(output_dim, snake_approx, pack)
         self.out_conv = WNConv1d(output_dim, d_out, 7, padding=3,
-                                 pad_mode=pad_mode, folded=folded, dtype=dtype)
+                                 pad_mode=pad_mode, folded=folded, dtype=dtype,
+                                 time_pack_in=pack, time_pack_out=pack)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.in_conv(x.to(self.dtype))
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
-        return torch.tanh(self.out_conv(self.snake(x))).float()
+        x = self.out_conv(self.snake(x))
+        if self.pack != 1:
+            x = unpack_time(x, self.pack)
+        return torch.tanh(x).float()
 
 
-def _either(profile_value: Optional[bool], config_value: bool) -> bool:
+def _either(profile_value, config_value):
     return config_value if profile_value is None else profile_value
 
 
@@ -151,7 +199,8 @@ class DAC_VRVQ(nn.Module):
             config.encoder_dim, config.encoder_rates, latent_dim, padding,
             profile.encoder_folded,
             _either(profile.encoder_snake_approx, config.encoder_snake_approx),
-            dtype=profile.encoder_compute_dtype)
+            dtype=profile.encoder_compute_dtype,
+            packed=_either(profile.encoder_packed, config.encoder_packed))
         if config.model_type == "CBR":
             self.quantizer = ResidualVectorQuantize(
                 latent_dim, config.n_codebooks, config.codebook_size,
@@ -163,7 +212,10 @@ class DAC_VRVQ(nn.Module):
             padding=padding, folded=profile.decoder_folded,
             snake_approx=_either(profile.decoder_snake_approx,
                                  config.decoder_snake_approx),
-            dtype=profile.decoder_compute_dtype)
+            dtype=profile.decoder_compute_dtype,
+            packed_blocks=_either(profile.decoder_packed, config.decoder_packed),
+            packed_up_blocks=_either(profile.decoder_packed_up,
+                                     config.decoder_packed_up))
 
     @staticmethod
     def vbr_quantizer(config: ModelConfig, latent_dim: int) -> nn.Module:
@@ -217,7 +269,9 @@ class DAC_VRVQ(nn.Module):
     # ------------------------------------------------------------ variants
     def clone(self, padding: bool) -> "DAC_VRVQ":
         """The same codec with ``padding`` set, sharing this one's parameter
-        tensors (no copy), its profile and its Snake kernel switches."""
+        tensors (no copy), its profile and its Snake kernel switches. A
+        time-packed codec has no padding-free variant: ``padding=False``
+        raises ``ValueError``."""
         return self.with_state(self.state_dict(), padding=padding)
 
     def with_state(self, state_dict, padding: Optional[bool] = None,

@@ -1,13 +1,20 @@
 """Where the serving path's time goes on the card.
 
-``python -m vrvq_tpu_torch.profile_serve [--profile exact|fast|turbo]
-[--pool N] [--trace PATH]`` compresses (VBR, level 1, 1 s windows, fused
-quantizer) and decompresses a seeded synthetic 10 s clip with the flagship
-codec (random seeded weights), as ``chip_smoke.py``'s serve phase does, in
-the given profile (``infer/fast.py``; ``exact`` is the live model). With
-``--pool N`` it serves N such clips (other seeds) at once instead, through
-``StreamPool`` and ``DecoderPool`` with ``max_batch=N``, every stream pushed
-1 s at a time, a poll after each push. Then:
+``python -m vrvq_tpu_torch.profile_serve [--profile
+exact|fast|turbo|turbo_packed] [--pool N | --batch B] [--trace PATH]``
+compresses (VBR, level 1, 1 s windows, fused quantizer) and decompresses a
+seeded synthetic 10 s clip with the flagship codec (random seeded weights),
+as ``chip_smoke.py``'s serve phase does, in the given profile
+(``infer/fast.py``; ``exact`` is the live model, ``turbo_packed`` the turbo
+profile with the time-packed encoder). With ``--pool N`` it serves N such
+clips (other seeds) at once instead, through ``StreamPool`` and
+``DecoderPool`` with ``max_batch=N``, every stream pushed 1 s at a time, a
+poll after each push. With ``--batch B`` it runs the padded one-shot codec
+on B such clips at once (``one_shot``: compress is the encoder with the
+fused-RVQ codes, ``fast.encode_codes``; decompress is
+``decode_from_codes``), the JAX package's serving shape at B = 16, and the
+only way ``turbo_packed`` serves (a packed profile has no padding-free
+codec). Then:
 
   * times compress and decompress on the host clock, each ending in a copy
     to the host (3 runs after a warm-up run);
@@ -26,6 +33,7 @@ import collections
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -34,8 +42,10 @@ from vrvq_tpu_torch.infer import fast, streaming
 
 CLIP_S = 10.0
 WINDOW_S = 1.0
+RUNS = 3  # timed runs after the warm-up
 PROFILES = {"exact": lambda m: m, "fast": fast.make_inference_model,
-            "turbo": fast.make_serving_model}
+            "turbo": fast.make_serving_model,
+            "turbo_packed": lambda m: fast.make_serving_model(m, encode_packed=True)}
 
 CLASSES = [
     ("snake_kernel", "snake (K2)"),
@@ -60,11 +70,23 @@ def main() -> None:
     ap.add_argument("--profile", default="exact", choices=sorted(PROFILES))
     ap.add_argument("--pool", type=int, default=0,
                     help="serve this many streams through StreamPool")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="run the padded one-shot codec on this many clips")
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = ap.parse_args()
 
     model = PROFILES[args.profile](
         port.build_model(port.FLAGSHIP, device="cuda", seed=0))
+    if args.batch:
+        audio = torch.from_numpy(np.concatenate(
+            [port.synthetic_clip(CLIP_S, model.sample_rate, 10 + i)
+             for i in range(args.batch)])).cuda()
+        res = one_shot(model, audio, trace=args.trace)
+        del res["codes"], res["mask"]
+        print(json.dumps({"card": torch.cuda.get_device_name(0),
+                          "profile": args.profile, "batch": args.batch,
+                          "clip_s": CLIP_S, **res}))
+        return
     proc = port.CodecProcessor(model, fused_quantizer=True)
     sr = model.sample_rate
     if args.pool:
@@ -80,7 +102,7 @@ def main() -> None:
     dac = compress()
     decompress(dac)
     enc, dec = [], []
-    for _ in range(3):
+    for _ in range(RUNS):
         t0 = time.perf_counter()
         dac = compress()
         t1 = time.perf_counter()
@@ -97,6 +119,19 @@ def main() -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
+    windows = (len(dac) if args.pool
+               else int(dac.codes.shape[-1] // dac.chunk_length))
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0), "profile": args.profile,
+        "streams": args.pool or 1, "clip_s": CLIP_S, "windows": windows,
+        "compress_s": enc, "decompress_s": dec,
+        **device_summary(prof, traced_s),
+    }))
+
+
+def device_summary(prof, traced_s: float) -> dict:
+    """The device time of a trace's kernels, by class and by name, with the
+    busy share of ``traced_s`` of wall time and the kernel count."""
     by_class = collections.Counter()
     by_name = collections.Counter()
     n_kernels = 0
@@ -108,18 +143,52 @@ def main() -> None:
         by_name[evt.name[:80]] += us / 1e3
         n_kernels += 1
     device_ms = sum(by_class.values())
-    windows = (len(dac) if args.pool
-               else int(dac.codes.shape[-1] // dac.chunk_length))
-    print(json.dumps({
-        "card": torch.cuda.get_device_name(0), "profile": args.profile,
-        "streams": args.pool or 1, "clip_s": CLIP_S, "windows": windows,
-        "compress_s": enc, "decompress_s": dec,
-        "traced_wall_ms": traced_s * 1e3, "device_ms": device_ms,
-        "device_busy_share": device_ms / (traced_s * 1e3),
-        "device_kernels": n_kernels,
-        "device_ms_by_class": dict(by_class.most_common()),
-        "top_kernels_ms": dict(by_name.most_common(12)),
-    }))
+    return {"traced_wall_ms": traced_s * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (traced_s * 1e3),
+            "device_kernels": n_kernels,
+            "device_ms_by_class": dict(by_class.most_common()),
+            "top_kernels_ms": dict(by_name.most_common(12))}
+
+
+def one_shot(model, audio: torch.Tensor, trace=None,
+             parts=("compress", "decompress")) -> dict:
+    """The padded one-shot codec of ``model`` on ``audio`` (B, 1, T) on the
+    card, a hop multiple: compress at level 1 (the encoder, the importance
+    map and the codes of the fused-RVQ kernel, ``fast.encode_codes``) and
+    decompress (``decode_from_codes``), each timed on the host clock after a
+    warm-up (``RUNS`` times, each ending in a synchronize), then traced once: the
+    real-time factors (seconds of audio per second, the median run) and
+    each part's device time by class. ``parts`` may leave one out; the
+    decompress then decodes the codes of one compress. Returns the codes
+    and mask too (``codes``, ``mask``; not JSON)."""
+    seconds = audio.shape[0] * audio.shape[-1] / model.sample_rate
+    fns = {"compress": lambda: fast.encode_codes(model, audio, 1.0)}
+    out = {}
+    with torch.inference_mode():
+        codes, mask = fns["compress"]()
+        fns["decompress"] = lambda: model.decode_from_codes(codes.long(), mask)
+        for part in parts:
+            fns[part]()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(RUNS):
+                t0 = time.perf_counter()
+                fns[part]()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fns[part]()
+                torch.cuda.synchronize()
+                traced_s = time.perf_counter() - t0
+            if trace:
+                prof.export_chrome_trace(f"{trace}.{part}.json")
+            summary = device_summary(prof, traced_s)
+            del summary["top_kernels_ms"]
+            out[part] = {"s": times, "rtf": seconds / sorted(times)[len(times) // 2],
+                         **summary}
+    out["codes"], out["mask"] = codes, mask
+    return out
 
 
 def pool_codec(proc, n: int):
