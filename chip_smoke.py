@@ -16,8 +16,10 @@ one line for each:
   serve    the flagship DAC_VRVQ (random seeded weights, 81.56M parameters)
            compresses a seeded 10 s 44.1 kHz clip in VBR through the chunked
            padding-free path with the fused-RVQ kernel, round-trips the .dac
-           file and decompresses it; the kernels' launch counts of this run
-           and the census of the Snake kernel's shapes (shape -> launches);
+           file and decompresses it, twice (the same .dac bytes, here and in
+           every profile of the fast phase); the kernels' launch counts of
+           this run and the census of the Snake kernel's shapes (shape ->
+           launches);
   agree    on a 3 s clip, three 1 s windows of the same chunked path: the
            kernel path against the port's plain path (code flips only on
            near-tie frames, identical masks, SI-SDR of the kernel decode
@@ -89,7 +91,8 @@ one line for each:
            state, step 3 taken on the trained state (the uninterrupted
            step: every parameter of both networks must get a non-zero
            gradient) and again through ``train()`` resumed from ``latest``
-           (the difference of their losses printed); finite losses, both
+           (the same losses, and both networks and optimizers after it, bit
+           for bit; the differences printed); finite losses, both
            grad norms, ms per step, clips per second, peak memory, the
            launches of K2's forward and backward per step (K1 never); K2's
            backward against its plain version at every shape of the train
@@ -128,8 +131,8 @@ one line for each:
            threads (``data_ms`` of the four runs), with samples of two
            ``val_idx`` items at every step: the prefetched batches equal
            ``load_batch``'s, the native counters rise, every discriminator
-           parameter gets a non-zero gradient, the other three runs agree
-           with the prefetched flac run within the parallel phase's bars,
+           parameter gets a non-zero gradient, the other three runs equal
+           the prefetched flac run bit for bit (losses, gradients, parameters),
            the event file holds the scalars, audio and images, and K2's
            forward launches equal the run's Snake calls and its backward
            launches the train census's; ``cli.export_torch`` of the run's
@@ -138,8 +141,9 @@ one line for each:
            model's bit for bit;
   parallel the flagship's step at batch 16 x 0.38 s (``vrvq_a2.yml``, MPD +
            MRD, the same pinned draws of the global batch throughout) in one
-           process, the reference, and again (the card's spread between two
-           runs of one step); (c) the same with ``remat`` (losses within 1e-5
+           process, the reference, and again (the same losses, gradients and
+           parameters, bit for bit: the step runs cuDNN's deterministic
+           algorithms); (c) the same with ``remat`` (losses within 1e-5
            relative, the update within 1e-4 relative L2: the gradients it
            took, each network's as one vector, and the parameters of both,
            ``agreement``; both peak memories, the step-time ratio, K2's
@@ -348,6 +352,7 @@ def device_phase():
           cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
           matmul_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_tf32=torch.backends.cudnn.allow_tf32,
+          cublas_workspace=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
           build_s=build_s, ptxas=registers)
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -434,7 +439,7 @@ def serve(model, signal, fused: bool = True, **request):
     decompress. A warm-up round trip (cuBLAS/cuDNN handles, allocator) takes
     the census of the Snake kernel's (mode, shape) -> launches; the launch
     counts are cleared just before the timed round trip and read just
-    after."""
+    after. The two round trips' ``.dac`` files must be the same bytes."""
     proc = port.CodecProcessor(model, fused_quantizer=fused)
     request = request or {"level": 1.0}
 
@@ -447,15 +452,17 @@ def serve(model, signal, fused: bool = True, **request):
         t2 = time.perf_counter()
         out = proc.decompress(loaded)
         t3 = time.perf_counter()
-        return dac, path.stat().st_size, out, t1 - t0, t3 - t2
+        return dac, path.read_bytes(), out, t1 - t0, t3 - t2
 
     with tempfile.TemporaryDirectory() as tmp:
         with kt.snake_census(proc.model_nopad, by_mode=True) as census:
-            round_trip(tmp)
+            first = round_trip(tmp)[1]
         build.LAUNCHES.clear()
-        dac, size, out, enc_s, dec_s = round_trip(tmp)
+        dac, data, out, enc_s, dec_s = round_trip(tmp)
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
+    assert data == first, "two compresses of the clip gave other .dac bytes"
+    size = len(data)
     seconds = signal.signal_duration
     assert (launches.get("rvq", 0) > 0) == fused, launches
     for mode in {m for m, _ in census}:
@@ -1429,7 +1436,7 @@ def train_phase(gen):
                 SEED, step, torch.device(DEVICE)))
             torch.cuda.synchronize()
             step_launches = dict(build.LAUNCHES)
-        uninterrupted = {k: v.item() for k, v in metrics.items()}
+        uninterrupted = {k: v.float().item() for k, v in metrics.items()}  # as train() logs
         per_step = sum(census.values())
         assert step_launches.get("snake_backward") == per_step, (step_launches, per_step)
         assert step_launches.get("snake") == per_step, (step_launches, per_step)
@@ -1440,12 +1447,15 @@ def train_phase(gen):
                    if p.grad is None or not bool(torch.count_nonzero(p.grad))]
         assert not no_grad, f"parameters without a gradient: {no_grad}"
 
-        # step 3 again, through train() resumed from `latest`
+        # step 3 again, through train() resumed from `latest`: the same bits
         build.LAUNCHES.clear()
         resumed = trainer.train({**cfg, "num_iters": TRAIN_STEPS, "resume": True},
                                 str(save), device=DEVICE)
         torch.cuda.synchronize()
         launches += build.LAUNCHES
+        for name in ("generator", "discriminator", "opt_g", "opt_d"):
+            same_bits(getattr(resumed.train_state, name).state_dict(),
+                      getattr(state, name).state_dict(), f"resumed {name}")
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_metrics = run.metrics + resumed.metrics
     for m in step_metrics:
@@ -1455,6 +1465,7 @@ def train_phase(gen):
     step_ms = run.step_ms + resumed.step_ms
     median_ms = float(np.median(step_ms[1:]))
     resume_diff = {k: resumed.metrics[0][k] - uninterrupted[k] for k in uninterrupted}
+    assert resumed.metrics[0] == uninterrupted, resume_diff
 
     census = dict(census)
     bwd = [snake_backward_check(shape, gen) for shape in census]
@@ -1472,6 +1483,7 @@ def train_phase(gen):
           launches_per_step={k: step_launches.get(k, 0)
                              for k in ("snake", "snake_backward", "rvq")},
           resumed_minus_uninterrupted_step3=resume_diff,
+          resumed_state_bit_identical=True,
           snake_census=[[list(k), v] for k, v in sorted(census.items())],
           snake_backward=bwd_row, snake_forward=fwd_row,
           snake_backward_shapes=bwd)
@@ -1870,16 +1882,15 @@ def trainer_io_phase(gen, serve_dac, chunks, train_rows):
         assert not no_grad, f"discriminator parameters without a gradient: {no_grad}"
         msd_syncs = msd_host_syncs(disc)
         # the same run loaded serially, and both runs on the wav corpus of the
-        # same samples: the losses, each network's gradients and the
-        # parameters within the card's spread (agreement's bars)
+        # same samples: the same losses, gradients and parameters, bit for bit
         ref, agree = snapshot(ts), {}
         for key in (("flac", 0), ("wav", 0), ("wav", IO_WORKERS)):
             other = runs.pop(key)
             err = max(loss_rel_err(m, want) for m, want in zip(other.metrics, run.metrics))
-            a = agreement(snapshot(other.train_state), ref, ref["params"])
-            assert err <= PAR_LOSS_RTOL, (key, err, other.metrics, run.metrics)
-            assert max(a["grad_rel_l2"].values()) <= PAR_UPDATE_REL_L2, (key, a)
-            assert a["param_rel_l2"] <= PAR_UPDATE_REL_L2, (key, a)
+            snap = snapshot(other.train_state)
+            a = agreement(snap, ref, ref["params"])
+            assert other.metrics == run.metrics, (key, err, other.metrics, run.metrics)
+            same_bits(snap, ref, f"trainer_io {key}")
             agree[f"{key[0]}_{'prefetched' if key[1] else 'serial'}"] = {
                 "max_loss_rel_err": err, "grad_rel_l2": a["grad_rel_l2"],
                 "param_rel_l2": a["param_rel_l2"]}
@@ -2130,7 +2141,8 @@ def parallel_phase(gen, pool):
                 torch.device(DEVICE))
 
         # (c) and the reference: one rank on the 16 rows, twice without remat
-        # (the second shows the card's own spread), then with remat
+        # (the same bits: the step is a function of its inputs), then with
+        # remat
         plain = one_rank(cfg, tmp / "one", draws, PAR_STEPS)
         theta0 = plain.pop("theta0")
         again = one_rank(cfg, tmp / "again", draws, 1)
@@ -2139,6 +2151,12 @@ def parallel_phase(gen, pool):
             remat["launches"])
         spread = {"max_loss_rel_err": loss_rel_err(again["metrics"], plain["metrics"]),
                   **agreement(again, plain, theta0)}
+        assert again["metrics"] == plain["metrics"], spread
+        same_bits({k: again[k] for k in ("params", "grads")},
+                  {k: plain[k] for k in ("params", "grads")}, "one rank twice")
+        assert spread["update_sign_flips"] == 0 and max(
+            spread["grad_rel_l2"].values()) == spread["param_rel_l2"] == spread[
+            "max_tensor_grad_rel_l2"] == spread["update_rel_l2"] == 0.0, spread
         remat_agree = {"max_loss_rel_err": loss_rel_err(remat["metrics"], plain["metrics"]),
                        **agreement(remat, plain, theta0)}
         assert remat_agree["max_loss_rel_err"] <= REMAT_LOSS_RTOL, remat_agree

@@ -38,6 +38,11 @@ codebook widths.
 The trainer's edge: the native I/O library built on the card's machine
 (wav reader, loudness meter and range coder, its counters rising), and
 ``train()`` with MSD and ``save_samples`` on the card by default.
+
+Bit-exact training: a small step built twice from its seed under
+``torch.use_deterministic_algorithms(True)`` (nothing raises) and once
+without it gives the same bits each time, and a run resumed from ``latest``
+the bits of the straight run.
 """
 
 import numpy as np
@@ -831,3 +836,163 @@ def test_padding_free_clone_of_a_packed_model_raises(cuda):
         packed.clone(padding=False)
     with pytest.raises(ValueError, match="packed encoder requires padding=True"):
         port.CodecProcessor(packed)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _leaves_that_differ(a, b):
+    """The paths at which two state dicts (nested dicts, lists, tensors,
+    numbers) differ; both must have the same paths."""
+    a, b = dict(_leaves(a)), dict(_leaves(b))
+    assert a.keys() == b.keys()
+    return [k for k, v in a.items() if not (
+        torch.equal(v, b[k]) if isinstance(v, torch.Tensor) else v == b[k])]
+
+
+def _step_bits(cfg, save, cuda):
+    """Step 0 of ``cfg`` from its seed, built by ``trainer.load``: the
+    transformed batch, the metrics, and each parameter, the gradient its
+    update took and AdamW's moments after it, on the host."""
+    from vrvq_tpu_torch.train import trainer
+
+    state = trainer.load(cfg, trainer.Tracker(), save, device=cuda)
+    ts = state.train_state
+    audio = trainer.prepare_audio(state.train_data, trainer.load_batch(
+        state.train_data, 0, int(cfg["batch_size"])), cuda)
+    metrics = state.train_step(ts, audio, generator=trainer.step_generator(0, 0, cuda))
+    out = {"audio": audio, **{f"metric.{k}": v for k, v in metrics.items()}}
+    for net, opt in (("generator", ts.opt_g), ("discriminator", ts.opt_d)):
+        for n, p in getattr(ts, net).named_parameters():
+            moments = opt.adamw.state[p]
+            out.update({f"{net}.{n}": p, f"{net}.{n}.grad": p.grad,
+                        f"{net}.{n}.exp_avg": moments["exp_avg"],
+                        f"{net}.{n}.exp_avg_sq": moments["exp_avg_sq"]})
+    return {k: v.detach().reshape(-1).float().cpu().view(torch.int32)
+            for k, v in out.items()}
+
+
+def test_a_step_twice_gives_the_same_bits_on_the_card(cuda, tmp_path):
+    """A small step (quantizer dropout, MPD's reflect pad, MRD, ShiftPhase
+    in the transforms) built twice from its seed under
+    ``torch.use_deterministic_algorithms(True)``, which raises at an op
+    without a deterministic CUDA version: nothing raises, and both runs, and
+    a third without that mode, give the same bits in the batch, the metrics,
+    the parameters, the gradients and AdamW's moments."""
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    for i in range(4):
+        port.Signal(port.synthetic_clip(1.0, 44100, 100 + i), 44100).write(
+            wavs / f"c{i}.wav")
+    cfg = _small_train_cfg(wavs, **{"DAC_VRVQ.quantizer_dropout": 0.25})
+    try:
+        torch.use_deterministic_algorithms(True)
+        runs = [_step_bits(cfg, tmp_path / f"run{i}", cuda) for i in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    runs.append(_step_bits(cfg, tmp_path / "run2", cuda))
+    for run in runs[1:]:
+        assert not _leaves_that_differ(run, runs[0])
+
+
+def test_resume_on_the_card_is_bit_exact(cuda, tmp_path):
+    """As ``test_torch_trainer.py::test_resume_is_bit_exact`` on the card:
+    steps 0..2 in one run against step 0, then steps 1..2 resumed from
+    ``latest``: the same metrics, and every tensor of both networks and
+    both optimizers equal."""
+    from vrvq_tpu_torch.train import checkpoint as ckpt
+    from vrvq_tpu_torch.train.trainer import train
+
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    for i in range(4):
+        port.Signal(port.synthetic_clip(1.0, 44100, 100 + i), 44100).write(
+            wavs / f"c{i}.wav")
+    over = {"DAC_VRVQ.quantizer_dropout": 0.25, "valid_freq": 100, "num_iters": 3}
+    straight = train(_small_train_cfg(wavs, **over), str(tmp_path / "a"))
+    train(_small_train_cfg(wavs, **{**over, "num_iters": 1}), str(tmp_path / "b"))
+    resumed = train(_small_train_cfg(wavs, **over, resume=True), str(tmp_path / "b"))
+    assert resumed.metrics == straight.metrics[1:]
+
+    def final(path):
+        return torch.load(tmp_path / path / "latest" / ckpt.STATE_FILE,
+                          map_location="cpu", weights_only=True)
+
+    assert not _leaves_that_differ(final("a"), final("b"))
+
+
+NCCL_YML = """\
+$include:
+  - conf/vrvq/vrvq_a2.yml
+DAC_VRVQ.encoder_dim: 16
+DAC_VRVQ.encoder_rates: [2, 4, 8]
+DAC_VRVQ.decoder_dim: 128
+DAC_VRVQ.decoder_rates: [8, 4, 2]
+DAC_VRVQ.n_codebooks: 4
+DAC_VRVQ.codebook_size: 64
+DAC_VRVQ.codebook_dim: 4
+DAC_VRVQ.quantizer_dropout: 0.25
+Discriminator.periods: [2]
+Discriminator.fft_sizes: [512]
+MultiScaleSTFTLoss.window_lengths: [512]
+MelSpectrogramLoss.n_mels: [40]
+MelSpectrogramLoss.window_lengths: [512]
+MelSpectrogramLoss.mel_fmin: [0]
+MelSpectrogramLoss.mel_fmax: [null]
+batch_size: 4
+val_batch_size: 4
+num_iters: 2
+valid_freq: 100
+train/AudioDataset.duration: 0.1
+val/AudioDataset.duration: 0.1
+val/AudioDataset.n_examples: 4
+"""
+
+
+def test_nccl_ranks_train_twice_to_the_same_bits(cuda, tmp_path):
+    """``cli.train`` with no flag on two or more cards (a rank a card that
+    divides the batch of 4, over NCCL), twice: the same metrics at every
+    step, and every tensor of both networks and both optimizers in
+    ``latest`` equal."""
+    import json
+    import subprocess
+    import sys
+
+    from vrvq_tpu_torch.config import REPO
+    from vrvq_tpu_torch.train import checkpoint as ckpt
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    for i in range(4):
+        port.Signal(port.synthetic_clip(1.0, 44100, 100 + i), 44100).write(
+            wavs / f"c{i}.wav")
+    (tmp_path / "nccl.yml").write_text(NCCL_YML)
+    folders = repr({"music": [str(wavs)]})
+    runs = []
+    for run in ("a", "b"):
+        out = subprocess.run(
+            [sys.executable, "-m", "vrvq_tpu_torch.cli.train", "--args.load",
+             str(tmp_path / "nccl.yml"), "--save_path", str(tmp_path / run),
+             "--train/build_dataset.folders", folders,
+             "--val/build_dataset.folders", folders],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        summary = json.loads(out.stdout.strip().splitlines()[-1])
+        assert summary["world"] >= 2 and summary["backend"] == "nccl", summary
+        runs.append((summary["metrics"], torch.load(
+            tmp_path / run / "latest" / ckpt.STATE_FILE, map_location="cpu",
+            weights_only=True)))
+    (metrics_a, state_a), (metrics_b, state_b) = runs
+    assert metrics_a == metrics_b
+
+    assert not _leaves_that_differ(state_a, state_b)

@@ -15,9 +15,16 @@ without CUDA they raise rather than fall back.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Mapping, Optional, Union
 
-import torch
+# cuBLAS repeats its bits run to run only with a fixed workspace setting,
+# read when its first handle is made (PyTorch's deterministic mode asks for
+# it too): set before any cuBLAS call of the process, unless already set.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -36,6 +43,24 @@ def disable_tf32() -> None:
     precision='highest' on the codes path."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """A context in which cuDNN runs only its deterministic algorithms,
+    picked by its heuristics rather than by timing them (two processes could
+    time them differently). The train and validation steps run in it, so a
+    step is a function of its inputs, as XLA's is: run twice, or resumed, it
+    gives the same bits. Scoped rather than set for the process: serving
+    keeps cuDNN's own choice (a decoder's transposed convs run its
+    backward-data algorithms), whatever trained before it in the process."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 from .audio import Signal, synthetic_clip  # noqa: E402
@@ -70,6 +95,6 @@ def build_model(config: ModelConfig = FLAGSHIP, *,
 
 __all__ = [
     "CodecProcessor", "DACFile", "DAC_MOE", "DAC_VRVQ", "FLAGSHIP", "ModelConfig",
-    "Signal", "build_model", "disable_tf32", "init_params", "resolve_device",
-    "small_config", "state_dict_from_jax", "synthetic_clip",
+    "Signal", "build_model", "deterministic_cudnn", "disable_tf32", "init_params",
+    "resolve_device", "small_config", "state_dict_from_jax", "synthetic_clip",
 ]

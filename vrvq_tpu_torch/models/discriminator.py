@@ -21,7 +21,7 @@ from torch import nn
 
 from ..nn.layers import WNConv1d, weight_norm
 from ..ops.resample import resample
-from ..ops.stft import stft
+from ..ops.stft import reflect_pad, stft
 
 BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
 
@@ -71,7 +71,7 @@ class MPD(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, 1, T) -> feature maps (B, C, T', period)."""
         pad = self.period - x.shape[-1] % self.period
-        x = F.pad(x, (0, pad), mode="reflect")
+        x = reflect_pad(x, 0, pad)
         x = x.reshape(x.shape[0], 1, -1, self.period)
         fmap = []
         for i in range(5):

@@ -10,7 +10,11 @@ Counterpart of ``vrvq_tpu/ops/stft.py``, on torch tensors ``(..., T)``:
   * mel filterbanks are librosa's (slaney scale, slaney norm), built in numpy.
 
 Frames are a strided view (``unfold``) through ``torch.fft.rfft``, the JAX
-package's gather through ``jnp.fft.rfft``: both differentiate.
+package's gather through ``jnp.fft.rfft``: both differentiate. The reflect
+padding (``reflect_pad``) and the inverse's overlap-add (``overlap_add``)
+sum in a fixed order on every device, so that a train step on the card gives
+the same bits each time it runs: CUDA's reflection-pad backward and
+``index_add_`` add with atomics.
 """
 
 from __future__ import annotations
@@ -65,6 +69,22 @@ def on_device(build, args: tuple, device: torch.device,
         return torch.from_numpy(build(*args)).to(device=device, dtype=dtype)
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """``F.pad(x, (left, right), mode="reflect")`` on the last axis, as a
+    flip and a cat: the same values, and a backward of slice adds in a fixed
+    order where CUDA's reflection-pad backward adds with atomics."""
+    length = x.shape[-1]
+    if max(left, right) >= length:
+        raise ValueError(f"reflect padding ({left}, {right}) must be less than "
+                         f"the input's length {length}")
+    parts = [x]
+    if left:
+        parts.insert(0, x[..., 1:left + 1].flip(-1))
+    if right:
+        parts.append(x[..., length - 1 - right:length - 1].flip(-1))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else x
+
+
 def stft(x: torch.Tensor, window_length: int, hop_length: int,
          window_type: Optional[str] = None, match_stride: bool = False,
          padding_type: str = "reflect") -> torch.Tensor:
@@ -72,11 +92,12 @@ def stft(x: torch.Tensor, window_length: int, hop_length: int,
     lead, length = x.shape[:-1], x.shape[-1]
     right_pad, pad = compute_stft_padding(length, window_length, hop_length,
                                           match_stride)
-    y = x.reshape(-1, 1, length)  # F.pad's reflect mode wants (N, C, T)
+    y = x.reshape(-1, length)
     if pad or right_pad:
-        y = F.pad(y, (pad, pad + right_pad), mode=padding_type)
+        y = (reflect_pad(y, pad, pad + right_pad) if padding_type == "reflect"
+             else F.pad(y, (pad, pad + right_pad), mode=padding_type))
     half = window_length // 2
-    y = F.pad(y, (half, half), mode="reflect")[:, 0]
+    y = reflect_pad(y, half, half)
     frames = y.unfold(-1, window_length, hop_length)  # (N, frames, win)
     spec = torch.fft.rfft(frames * _window(window_type, window_length, y), dim=-1)
     spec = spec.transpose(-1, -2)
@@ -86,6 +107,24 @@ def stft(x: torch.Tensor, window_length: int, hop_length: int,
     return spec
 
 
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """``(..., n_frames, win)`` -> ``(..., win + hop * (n_frames - 1))``:
+    frame ``f`` added at ``f * hop``. A sum of ``ceil(win / hop)`` shifted
+    views of hop-long blocks, so each sample adds the frames that cover it
+    in frame order, as the JAX package's scatter-add does on the CPU, on
+    every device (CUDA's ``index_add_`` adds with atomics)."""
+    *lead, n_frames, window_length = frames.shape
+    blocks = -(-window_length // hop_length)
+    frames = F.pad(frames, (0, blocks * hop_length - window_length))
+    frames = frames.reshape(*lead, n_frames, blocks, hop_length)
+    out = None
+    for k in reversed(range(blocks)):  # the earliest frame first
+        view = F.pad(frames[..., k, :], (0, 0, k, blocks - 1 - k))
+        out = view if out is None else out + view
+    out = out.reshape(*lead, (n_frames + blocks - 1) * hop_length)
+    return out[..., :window_length + hop_length * (n_frames - 1)]
+
+
 def istft(spec: torch.Tensor, window_length: int, hop_length: int,
           length: int, window_type: Optional[str] = None) -> torch.Tensor:
     """Inverse of ``stft`` (``center=True``, no ``match_stride``): windowed
@@ -93,18 +132,11 @@ def istft(spec: torch.Tensor, window_length: int, hop_length: int,
     ``(..., n_freq, frames)`` -> ``(..., length)``."""
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=window_length, dim=-1)
     window = _window(window_type, window_length, frames)
-    frames = frames * window
-    n_frames = frames.shape[-2]
-    total = window_length + hop_length * (n_frames - 1)
-    lead = frames.shape[:-2]
-    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop_length
-           + torch.arange(window_length, device=frames.device)[None, :]).reshape(-1)
-    flat = frames.reshape(-1, n_frames * window_length)
-    sig = flat.new_zeros(flat.shape[0], total).index_add_(1, idx, flat)
-    wsum = flat.new_zeros(total).index_add_(0, idx, (window * window).repeat(n_frames))
+    sig = overlap_add(frames * window, hop_length)
+    wsum = overlap_add((window * window).expand(frames.shape[-2], -1), hop_length)
     sig = sig / torch.clamp(wsum, min=1e-11)
     half = window_length // 2
-    return sig[:, half:half + length].reshape(*lead, -1)
+    return sig[..., half:half + length]
 
 
 def _hz_to_mel_slaney(f) -> np.ndarray:

@@ -17,7 +17,9 @@ directory, in micro-batches of 16 x 0.38 s: a batch of 16 times the config's
     (K2 forward, K2 backward and its dalpha reduction), FFTs, matmuls, the
     optimizers' multi-tensor kernels, elementwise and reductions, copies;
     with the device's busy share of the traced wall time, and that device
-    time over the median untraced step (the profiler slows the host).
+    time over the median untraced step (the profiler slows the host); and
+    the device time of the convolutions' backward by the shapes of their
+    input and weight (which convs the backward algorithms cost).
 
 Prints one JSON line. Needs an NVIDIA card.
 """
@@ -121,7 +123,8 @@ def main() -> None:
             step_ms.append(1e3 * (t2 - t1))
 
         i = 2 + args.steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             step(i, batch(i))
             torch.cuda.synchronize()
@@ -142,6 +145,12 @@ def main() -> None:
         by_name[evt.name[:80]] += ms
         n_kernels += 1
     device_ms = sum(by_class.values())
+    conv_bwd = collections.Counter()
+    for avg in prof.key_averages(group_by_input_shape=True):
+        if avg.key == "aten::convolution_backward":  # (grad, input, weight, ...)
+            shapes = avg.input_shapes
+            conv_bwd[f"input {shapes[1]} weight {shapes[2]} x{avg.count}"] += (
+                avg.device_time_total / 1e3)
     median_ms = float(np.median(step_ms))
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "config": args.load,
@@ -158,6 +167,7 @@ def main() -> None:
         "device_kernels": n_kernels,
         "device_ms_by_class": dict(by_class.most_common()),
         "top_kernels_ms": dict(by_name.most_common(15)),
+        "conv_backward_ms_by_shape": dict(conv_bwd.most_common(15)),
     }))
 
 

@@ -37,6 +37,13 @@ backward. The step draws the levels and depths first and passes them in
 pinned, so the recompute sees the same draws (the checkpoint restores the
 global RNG, not a ``torch.Generator``).
 
+Both steps run in ``deterministic_cudnn()`` (cuDNN's deterministic
+algorithms, not timed), and every op of the step sums in a fixed order
+(``ops/stft.reflect_pad``, ``overlap_add``; CUDA's reflection-pad backward
+and ``index_add_`` add with atomics): a step is a function of the state,
+the batch and the draws, as the JAX step is, so a step run twice, or a run
+resumed, gives the same bits, on the card as on the CPU.
+
 Data parallelism: in a process group (``parallel``) ``audio`` holds this
 rank's rows of the global batch (``parallel.local_rows``); the draws are the
 global batch's, from the step's generator or pinned, and each rank keeps
@@ -57,6 +64,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import deterministic_cudnn
 from ..losses.gan import discriminator_loss, generator_loss
 from ..parallel import dist as pdist
 from .state import TrainState
@@ -180,6 +188,7 @@ def make_train_step(lambdas: Mapping[str, float], stft_loss, mel_loss,
             depths = drawn["depths"] if depths is None else depths
         return dict(levels=levels, depths=depths)
 
+    @deterministic_cudnn()
     def train_step(state: TrainState, audio: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    levels=None, depths=None) -> Dict[str, torch.Tensor]:
@@ -223,6 +232,7 @@ def make_val_step(stft_loss, mel_loss, waveform_loss) -> Callable:
     1.0 and its losses (``loss`` is the mel loss)."""
 
     @torch.no_grad()
+    @deterministic_cudnn()
     def val_step(generator: torch.nn.Module, audio: torch.Tensor):
         out = generator(audio, level=1.0)
         recons = out["audio"]

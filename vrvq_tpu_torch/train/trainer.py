@@ -285,8 +285,10 @@ def load(cfg: Union[Config, Mapping], tracker: Tracker, save_path,
     """Build the networks (drawn from ``seed``, or resumed from ``tag``),
     optimizers (``zero``: AdamW's state sharded over the ranks), steps and
     datasets, on the card unless ``device`` says otherwise, with TF32 off
-    (float32, as the JAX package trains). In a process group every rank
-    calls it and starts from rank 0's parameters."""
+    (float32, as the JAX package trains); its steps run cuDNN's
+    deterministic algorithms (``loop``), so a step run twice, or resumed,
+    gives the same bits. In a process group every rank calls it and starts
+    from rank 0's parameters."""
     cfg = as_config(cfg)
     check_keys(cfg)
     config = model_config(cfg)
@@ -386,6 +388,18 @@ def open_writer(save_path):
         return None
 
 
+def close_writer(writer) -> None:
+    """Close a ``SummaryWriter`` and join the thread its close leaves
+    running: tensorboardX queues events through a ``multiprocessing.Queue``,
+    whose feeder thread outlives ``close``."""
+    queues = [getattr(getattr(w, "event_writer", None), "_event_queue", None)
+              for w in (getattr(writer, "all_writers", None) or {}).values()]
+    writer.close()
+    for q in queues:
+        if hasattr(q, "join_thread"):
+            q.join_thread()
+
+
 @torch.no_grad()
 def save_samples(state: State, val_idx: List[int], writer) -> None:
     """The ``val_idx`` items of the val set through the generator at level
@@ -469,7 +483,7 @@ def train(cfg: Union[Config, Mapping], save_path: str = "ckpt",
             _loop(cfg, state, save_path, batch_size, rows, writer, None)
     finally:
         if writer is not None:
-            writer.close()
+            close_writer(writer)
     return state
 
 
