@@ -118,6 +118,16 @@ one line for each:
            inference CLI's level sweep of one 1 s example from the first
            run's last checkpoint; K2's polynomial forward and backward
            against their plain versions over the accumulated step's census;
+  trained  a harmonic corpus of 2 s clips from ``cli.make_synth_dataset``;
+           ``cli.train`` on ``conf/vrvq/vrvq_a2_synth_demo.yml`` at flagship
+           width from it for 2 steps, under the census of K2's forward and
+           backward calls; ``cli.measure_trained``'s 1000-step floor refused,
+           then its every line at 2 x 1 s with the corpus as the gates'
+           probe (the verdicts mean nothing this early); ``cli.evaluate`` at
+           the 12 default levels (kbps rising); K2 in each mode over the
+           training's, the measurement's and the evaluation's censuses and
+           K1 at every frame count of the measurement, against their plain
+           versions;
   trainer_io the native I/O library (built with ``g++``): the eval phase's wav,
            LPC flac and fixed-subframe flac clips read natively and by the
            plain readers (bit for bit; host ms per second of audio of each),
@@ -197,6 +207,7 @@ import dataclasses
 import functools
 import hashlib
 import importlib.util
+import io
 import json
 import multiprocessing
 import os
@@ -218,7 +229,10 @@ from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
 from vrvq_tpu_torch.cli import evaluate as cli_eval
 from vrvq_tpu_torch.cli import export_torch as cli_export
+from vrvq_tpu_torch.cli import make_synth_dataset as cli_synth
+from vrvq_tpu_torch.cli import measure_trained as cli_measure
 from vrvq_tpu_torch.cli import stream_demo as cli_stream
+from vrvq_tpu_torch.cli import train as cli_train
 from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config, model_config, parse_args
 from vrvq_tpu_torch.data import audio_io, ffdecode, flac_py, mpeg
 from vrvq_tpu_torch.kernels import build
@@ -276,6 +290,12 @@ CBR_YAML = "conf/original_dac/cbr.yml"
 CLI_STEPS = 3
 CBR_STEPS = 2
 CLI_TIMEOUT_S = 420
+# the trained phase: the synth demo's corpus and run, cut to size
+SYNTH_DEMO_YAML = "conf/vrvq/vrvq_a2_synth_demo.yml"
+TRAINED_CORPUS = {"train": 16, "val": 16, "test": 8}  # 2 s clips, as the generator makes
+TRAINED_STEPS = 2
+TRAINED_MEASURE = (2, 1.0)  # the profiles' batch x seconds: the JAX script's CPU sizes
+TRAINED_EVAL_CLIPS = 1
 # the models phase: DAC_MOE's VBR levels and train batch (x TRAIN_DURATION_S),
 # and a per-stage codebook_dim list at the flagship's width
 MOE_LEVELS = (0.5, 1.0, 2.0)
@@ -887,6 +907,26 @@ def rvq_calls():
         rvq_ops.fused_rvq_prepared = inner
 
 
+@contextlib.contextmanager
+def snake_backward_calls():
+    """While open, counts the input shapes of every ``ops.snake.snake_backward``
+    call (the autograd backward of K2's float32 modes), by the launch counter
+    each call adds to: a Counter of (name, shape) -> calls."""
+    calls = collections.Counter()
+    inner = snake_ops.snake_backward
+
+    def record(x, alpha, grad, approx=False):
+        name = "snake_approx_backward" if approx else "snake_backward"
+        calls[name, tuple(x.shape)] += 1
+        return inner(x, alpha, grad, approx)
+
+    snake_ops.snake_backward = record
+    try:
+        yield calls
+    finally:
+        snake_ops.snake_backward = inner
+
+
 def counted(fn, *args, plain: bool = False, **kwargs):
     """``fn``'s result, the kernels' launches of its run (counts cleared just
     before, read just after) and its Snake census: a launch for every Snake
@@ -971,14 +1011,16 @@ def write_eval_clips(folder: Path, sr: int):
     return formats, flac_path
 
 
-def snake_mode_row(census, mode, gen, base_census):
+def snake_mode_row(census, mode, gen, base_census, known=None):
     """K2 in ``mode`` against its plain version, timed, at every shape of
-    that mode in a path's census: ms, plain and bound summed over the census
-    (each shape weighted by its launches), and the shapes new beside
+    that mode in a path's census (a check of this run in ``known``, shape ->
+    check of the same mode, is reused): ms, plain and bound summed over the
+    census (each shape weighted by its launches), and the shapes new beside
     ``base_census``."""
     mode_census = of_mode(census, mode)
+    known = known or {}
     with torch.inference_mode():
-        checks = [snake_check(s, gen, mode) for s in sorted(mode_census)]
+        checks = [known.get(s) or snake_check(s, gen, mode) for s in sorted(mode_census)]
     return {**census_row(checks, mode_census),
             "launches": sum(mode_census.values()),
             "new_shapes": len(set(mode_census) - set(base_census))}
@@ -1489,7 +1531,9 @@ def train_phase(gen):
           snake_backward_shapes=bwd)
     return {"snake_train": {**fwd_row, "launches": launches.get("snake", 0)},
             "snake_backward": {**bwd_row, "launches": launches["snake_backward"]},
-            "per_step": per_step, "census": census}
+            "per_step": per_step, "census": census,
+            "fwd_checks": {tuple(c["shape"]): c for c in fwd},
+            "bwd_checks": {tuple(c["shape"]): c for c in bwd}}
 
 
 def start_cli(module: str, args):
@@ -1653,6 +1697,123 @@ def cli_phase(gen):
             "snake_approx_backward": {**bwd_row,
                                       "launches": launches["snake_approx_backward"]},
             "per_step": {"forward": sum(fwd.values()), "backward": sum(bwd.values())}}
+
+
+def trained_phase(gen, serve_census, train_rows):
+    """A harmonic corpus from ``cli.make_synth_dataset``, ``cli.train`` on
+    ``vrvq_a2_synth_demo.yml`` at flagship width from it for
+    ``TRAINED_STEPS`` steps (both CLIs' ``main`` in this process, the
+    training under the census of K2's forward and backward calls),
+    ``cli.measure_trained`` on that checkpoint (its floor of 1000 steps
+    refused, then passed with ``min_steps=0``: the verdicts mean nothing
+    this early; every line and the probe checked), ``cli.evaluate`` of it at
+    the 12 default levels on ``TRAINED_EVAL_CLIPS`` test clips; K2 in each
+    mode over the training's, the measurement's and the evaluation's
+    censuses and K1 at every frame count of the measurement's calls, against
+    their plain versions (a shape the train phase checked is not checked
+    again). Returns the kernel rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, save = Path(tmp) / "data_synth", Path(tmp) / "synth_demo"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            cli_synth.main(["--out", str(corpus), *(a for k, n in TRAINED_CORPUS.items()
+                                                    for a in (f"--{k}", str(n)))])
+        corpus_s = time.perf_counter() - t0
+        assert printed.getvalue().splitlines() == [
+            f"{s}: {n} x 2.0s -> {corpus / s}" for s, n in TRAINED_CORPUS.items()]
+        wavs = {s: sorted(p.name for p in (corpus / s).glob("*.wav"))
+                for s in TRAINED_CORPUS}
+        assert {s: len(w) for s, w in wavs.items()} == TRAINED_CORPUS, wavs
+        assert wavs["test"][0] == "test_0000.wav", wavs["test"]
+        over = {"train/build_dataset.folders": {"music": [str(corpus / "train")]},
+                "val/build_dataset.folders": {"music": [str(corpus / "val")]},
+                "num_iters": TRAINED_STEPS, "save_path": str(save)}
+        t0 = time.perf_counter()
+        with snake_backward_calls() as bwd_calls, \
+                contextlib.redirect_stdout(io.StringIO()):
+            run, launches, train_census = counted(
+                cli_train.main, ["--args.load", SYNTH_DEMO_YAML, *argv(over)])
+        train_s = time.perf_counter() - t0
+        assert run["launches"] == launches, (run["launches"], launches)
+        assert run["steps"] == TRAINED_STEPS and not run["params_without_gradient"]
+        assert all(np.isfinite(v) for m in run["metrics"] for v in m.values())
+        assert launches.get("rvq", 0) == 0 and launches.get("snake", 0) > 0, launches
+        assert {m for m, _ in train_census} == {"snake"}, train_census
+        bwd_census = of_mode(bwd_calls, "snake_backward")
+        assert set(bwd_calls) == {("snake_backward", sh) for sh in bwd_census}, bwd_calls
+        assert launches.get("snake_backward") == sum(bwd_census.values()) == (
+            TRAINED_STEPS * train_rows["per_step"]), (launches, train_rows["per_step"])
+        torch.cuda.empty_cache()
+
+        try:
+            cli_measure.trained_flagship(save, device=DEVICE, config=SYNTH_DEMO_YAML)
+            raise AssertionError(f"a checkpoint of {TRAINED_STEPS} steps was not refused")
+        except SystemExit as exc:
+            refused = str(exc)
+        model = cli_measure.trained_flagship(save, min_steps=0, device=DEVICE,
+                                             config=SYNTH_DEMO_YAML)
+        lines = []
+        t0 = time.perf_counter()
+        with rvq_calls() as calls:
+            _, measure_launches, census = counted(
+                cli_measure.measure, model, *TRAINED_MEASURE, str(save),
+                str(corpus / "test"), emit=lines.append)
+        measure_s = time.perf_counter() - t0
+        names = [ln.get("gate", ln.get("profile")) for ln in lines[1:]]
+        assert names == ([g for g, _ in cli_measure.GATES]
+                         + [f"{t}_vs_base_TRAINED" for t, _ in cli_measure.PACKED_DECODERS]
+                         + [p for p, _ in cli_measure.PROFILES]), names
+        probe = f"held-out corpus {corpus / 'test'} (8 clips)"
+        assert all(ln["probe"] == probe for ln in lines[1:3]), lines[1:3]
+        assert all(ln["forward_ms"] > 0 for ln in lines[7:]), lines[7:]
+        assert {m for m, _ in census} == {"snake", "snake_approx",
+                                          "snake_approx_bf16"}, census
+        assert measure_launches.get("rvq", 0) > 0, measure_launches
+        del model
+        torch.cuda.empty_cache()
+
+        with contextlib.redirect_stdout(io.StringIO()):  # the report is kept below
+            report, eval_launches, eval_census = counted(cli_eval.main, [
+                "--args.load", SYNTH_DEMO_YAML, "--ckpt_dir", str(save), "--tag",
+                "latest", "--data_dir", str(corpus / "test"), "--num_examples",
+                str(TRAINED_EVAL_CLIPS), "--duration", "2.0", "--out",
+                str(Path(tmp) / "eval.json")])
+    levels = report["levels"]
+    kbps = [lv["kbps"] for lv in levels.values()]
+    assert len(levels) == 12, list(levels)
+    assert all(b >= a for a, b in zip(kbps, kbps[1:])) and kbps[-1] > kbps[0], kbps
+    assert {m for m, _ in eval_census} == {"snake", "snake_approx_bf16"}, eval_census
+
+    rows = {"snake_trained_train": snake_mode_row(
+        train_census, "snake", gen, train_rows["census"], known=train_rows["fwd_checks"])}
+    bwd = [train_rows["bwd_checks"].get(sh) or snake_backward_check(sh, gen)
+           for sh in sorted(bwd_census)]
+    rows["snake_backward_trained_train"] = {
+        **census_row(bwd, bwd_census), "launches": launches["snake_backward"],
+        "new_shapes": len(set(bwd_census) - set(train_rows["census"]))}
+    rows.update({f"{mode}_trained_measure": snake_mode_row(census, mode, gen, serve_census)
+                 for mode in ("snake", "snake_approx", "snake_approx_bf16")})
+    rows.update({f"{mode}_trained_eval": snake_mode_row(eval_census, mode, gen,
+                                                         serve_census)
+                 for mode in ("snake", "snake_approx_bf16")})
+    rows["fused_rvq_trained"] = rvq_stream_row(calls, measure_launches["rvq"], gen)
+    phase("trained", config=SYNTH_DEMO_YAML, corpus={**TRAINED_CORPUS, "seconds": 2.0},
+          reductions={"num_iters": TRAINED_STEPS, "corpus": TRAINED_CORPUS,
+                      "measure_batch_x_seconds": list(TRAINED_MEASURE),
+                      "eval_clips": TRAINED_EVAL_CLIPS},
+          corpus_cli_s=corpus_s, train_cli_s=train_s, step_ms=run["step_ms"],
+          train_snake_census=[[list(k), v] for k, v in sorted(train_census.items())],
+          train_snake_backward_census=[[list(k), v] for k, v in sorted(bwd_census.items())],
+          losses=run["metrics"], train_launches=launches,
+          peak_memory_gib=run["peak_memory_gib"], refused_under_1000_steps=refused,
+          measure_lines=lines, measure_s=measure_s, measure_launches=measure_launches,
+          eval_levels={lv: {m: stats[m]["mean"] for m in ("SI-SDR", "mel")}
+                       | {"kbps": stats["kbps"]} for lv, stats in levels.items()},
+          eval_launches=eval_launches,
+          kernel_rows={k: {f: v for f, v in r.items() if f != "frames"}
+                       for k, r in rows.items()},
+          rvq_frames=rows["fused_rvq_trained"]["frames"])
+    return rows
 
 
 def write_flac_clip(job) -> str:
@@ -2564,6 +2725,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_rows = cli_phase(gen)
     torch.cuda.empty_cache()
+    trained_rows = trained_phase(gen, census, train_rows)
+    torch.cuda.empty_cache()
     io_rows = trainer_io_phase(gen, serve_dac, pool["chunks"], train_rows)
     torch.cuda.empty_cache()
     par = parallel_phase(gen, pool)
@@ -2644,6 +2807,54 @@ def main() -> int:
                        f"launches a step over "
                        f"{cli_rows['snake_approx_backward']['shapes']} shapes"),
     ]
+    trained = (f"the trained phase ({SYNTH_DEMO_YAML} from a corpus of "
+               f"cli.make_synth_dataset, {TRAINED_STEPS} steps)")
+    fwd, bwd = (trained_rows[k] for k in ("snake_trained_train",
+                                          "snake_backward_trained_train"))
+    kernels += [
+        kernel_row("snake_trained_train", fwd, **source,
+                   per=f"exact float32 forward, cli.train in {trained}: its own "
+                       f"census (train steps and validations at batch 16 x 33 hops, "
+                       f"samples of 2 items): {fwd['launches']} launches over "
+                       f"{fwd['shapes']} shapes ({fwd['new_shapes']} not in the "
+                       f"train phase's census)"),
+        kernel_row("snake_backward_trained_train", bwd,
+                   source="vrvq_tpu_torch/kernels/csrc/snake.cu",
+                   replaces="vrvq_tpu/ops/snake.py:19 (no Pallas backward: "
+                            "XLA's autodiff of snake_reference)",
+                   per=f"cli.train in {trained}: its own census of backward calls, "
+                       f"{bwd['launches']} launches over {bwd['shapes']} shapes "
+                       f"({bwd['new_shapes']} not in the train phase's census)"),
+    ]
+    for name, what in (
+            ("snake_trained_measure", "exact float32, the exact encoders"),
+            ("snake_approx_trained_measure", "polynomial float32, the turbo encoders"),
+            ("snake_approx_bf16_trained_measure", "polynomial bfloat16, the decoders")):
+        row = trained_rows[name]
+        kernels.append(kernel_row(
+            name, row, **source,
+            per=f"{what} of cli.measure_trained in {trained}: gates on 8 x 2 s "
+                f"probe clips, packed decoders of 4 x 2 s, profiles at "
+                f"{TRAINED_MEASURE[0]} x {TRAINED_MEASURE[1]:g} s: "
+                f"{row['launches']} launches over {row['shapes']} shapes "
+                f"({row['new_shapes']} not in the serve census)"))
+    for name, what in (("snake_trained_eval", "exact float32 (the batch-1 encoder)"),
+                       ("snake_approx_bf16_trained_eval",
+                        "polynomial bfloat16 (the batch-12 level decode)")):
+        row = trained_rows[name]
+        kernels.append(kernel_row(
+            name, row, **source,
+            per=f"{what}, cli.evaluate of {TRAINED_EVAL_CLIPS} x 2 s test clips "
+                f"at the 12 default levels in {trained}: {row['launches']} "
+                f"launches over {row['shapes']} shapes ({row['new_shapes']} new)"))
+    k1 = trained_rows["fused_rvq_trained"]
+    kernels.append(
+        {"name": "fused_rvq_trained", "route": "cuda", **rvq_source,
+         **{k: k1[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by")},
+         "library_ms": None,
+         "per": f"cli.measure_trained in {trained}, the trained weights: the "
+                f"mean launch over its calls (frames: launches {k1['frames']})"})
     kernels += [
         kernel_row("snake_trainer_io", io_rows["forward"], **source,
                    per=f"exact float32 forward, the trainer_io phase's train() with MSD "

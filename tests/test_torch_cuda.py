@@ -39,6 +39,9 @@ The trainer's edge: the native I/O library built on the card's machine
 (wav reader, loudness meter and range coder, its counters rising), and
 ``train()`` with MSD and ``save_samples`` on the card by default.
 
+The synthetic corpus, ``cli.train`` and ``cli.measure_trained`` on the card
+by default, with K1 and K2 launched.
+
 Bit-exact training: a small step built twice from its seed under
 ``torch.use_deterministic_algorithms(True)`` (nothing raises) and once
 without it gives the same bits each time, and a run resumed from ``latest``
@@ -996,3 +999,44 @@ def test_nccl_ranks_train_twice_to_the_same_bits(cuda, tmp_path):
     assert metrics_a == metrics_b
 
     assert not _leaves_that_differ(state_a, state_b)
+
+
+def test_synth_corpus_train_and_measure_trained_default_to_the_card(cuda, tmp_path):
+    """A corpus from ``cli.make_synth_dataset``, 2 steps of ``cli.train`` of
+    ``tests/tiny_synth_demo.yml`` and ``measure`` of that checkpoint
+    (``trained_flagship`` with ``min_steps=0``), with no device named: the
+    model on ``cuda:0``, K1 and K2 launched, every line printed with the
+    corpus as the gates' probe."""
+    import contextlib
+    import io
+    import json
+    from pathlib import Path
+
+    from vrvq_tpu_torch.cli import make_synth_dataset as cli_synth
+    from vrvq_tpu_torch.cli import measure_trained as mt
+    from vrvq_tpu_torch.cli import train as cli_train
+
+    conf = str(Path(__file__).resolve().parent / "tiny_synth_demo.yml")
+    corpus = tmp_path / "corpus"
+    cli_synth.main(["--out", str(corpus), "--train", "4", "--val", "2", "--test", "8",
+                    "--duration", "0.3"])
+    save = tmp_path / "ckpt"
+    summary = cli_train.main([
+        "--args.load", conf, "--save_path", str(save), "--num_iters", "2",
+        "--train/build_dataset.folders", repr({"music": [str(corpus / "train")]}),
+        "--val/build_dataset.folders", repr({"music": [str(corpus / "val")]})])
+    assert summary["device"] != "cpu" and summary["steps"] == 2, summary
+    model = mt.trained_flagship(save, min_steps=0, config=conf)
+    assert next(model.parameters()).device == torch.device("cuda", 0)
+    LAUNCHES.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lines = mt.measure(model, 2, 0.5, str(save), str(corpus / "test"))
+    torch.cuda.synchronize()
+    assert [json.loads(ln) for ln in buf.getvalue().splitlines()] == json.loads(
+        json.dumps(lines))
+    assert len(lines) == 12
+    assert all(ln["probe"] == f"held-out corpus {corpus / 'test'} (8 clips)"
+               for ln in lines[1:3])
+    assert LAUNCHES["rvq"] > 0 and LAUNCHES["snake"] > 0, dict(LAUNCHES)
+    assert LAUNCHES["snake_approx"] > 0 and LAUNCHES["snake_approx_bf16"] > 0
