@@ -123,11 +123,15 @@ one line for each:
            width from it for 2 steps, under the census of K2's forward and
            backward calls; ``cli.measure_trained``'s 1000-step floor refused,
            then its every line at 2 x 1 s with the corpus as the gates'
-           probe (the verdicts mean nothing this early); ``cli.evaluate`` at
-           the 12 default levels (kbps rising); K2 in each mode over the
-           training's, the measurement's and the evaluation's censuses and
-           K1 at every frame count of the measurement, against their plain
-           versions;
+           probe (the verdicts mean nothing this early); the fast profile's
+           folded bfloat16 decoder against the live float32 one on the
+           live encoder's codes of a test clip at level 1.0 (SI-SDR at least
+           ``MIN_FAST_DB``, printed on a line of its own); ``cli.evaluate``
+           at the 12 default levels in the fast and the live profile (kbps
+           rising, equal in both: the codes are the live encoder's); K2 in
+           each mode over the training's, the measurement's and both
+           evaluations' censuses and K1 at every frame count of the
+           measurement, against their plain versions;
   trainer_io the native I/O library (built with ``g++``): the eval phase's wav,
            LPC flac and fixed-subframe flac clips read natively and by the
            plain readers (bit for bit; host ms per second of audio of each),
@@ -1699,6 +1703,22 @@ def cli_phase(gen):
             "per_step": {"forward": sum(fwd.values()), "backward": sum(bwd.values())}}
 
 
+def folded_against_live_db(model, clip: Path) -> float:
+    """The fast profile's decoder (weight norm folded, bfloat16, polynomial
+    Snake: ``fast.serving_model``) against the live float32 decoder of
+    ``model``, on the live encoder's codes of ``clip`` at level 1.0: SI-SDR
+    (dB) of the fast decode against the live one."""
+    data, rate = audio_io.read_audio(clip)
+    audio = torch.from_numpy(np.asarray(data, np.float32)[None, :1]).to(DEVICE)
+    with torch.inference_mode():
+        audio = model.preprocess(audio, rate)
+        enc = model.encode(audio, level=1.0)
+        live = model.decode_from_codes(enc["codes"], enc["mask_imp"])
+        folded = fast.serving_model(model, True).decode_from_codes(
+            enc["codes"], enc["mask_imp"])
+    return si_sdr(folded.float(), live)
+
+
 def trained_phase(gen, serve_census, train_rows):
     """A harmonic corpus from ``cli.make_synth_dataset``, ``cli.train`` on
     ``vrvq_a2_synth_demo.yml`` at flagship width from it for
@@ -1769,20 +1789,30 @@ def trained_phase(gen, serve_census, train_rows):
         assert {m for m, _ in census} == {"snake", "snake_approx",
                                           "snake_approx_bf16"}, census
         assert measure_launches.get("rvq", 0) > 0, measure_launches
+        fast_decode_db = folded_against_live_db(model, corpus / "test" / wavs["test"][0])
+        print(json.dumps({"trained_fast_decoder_vs_live_si_sdr_db": fast_decode_db,
+                          "bar_db": MIN_FAST_DB}), flush=True)
+        assert fast_decode_db >= MIN_FAST_DB, fast_decode_db
         del model
         torch.cuda.empty_cache()
 
-        with contextlib.redirect_stdout(io.StringIO()):  # the report is kept below
-            report, eval_launches, eval_census = counted(cli_eval.main, [
-                "--args.load", SYNTH_DEMO_YAML, "--ckpt_dir", str(save), "--tag",
-                "latest", "--data_dir", str(corpus / "test"), "--num_examples",
-                str(TRAINED_EVAL_CLIPS), "--duration", "2.0", "--out",
-                str(Path(tmp) / "eval.json")])
-    levels = report["levels"]
+        reports, evals = {}, {}
+        for profile, flag in (("fast", "1"), ("live", "0")):
+            with contextlib.redirect_stdout(io.StringIO()):  # the report is kept below
+                reports[profile], *evals[profile] = counted(cli_eval.main, [
+                    "--args.load", SYNTH_DEMO_YAML, "--ckpt_dir", str(save), "--tag",
+                    "latest", "--data_dir", str(corpus / "test"), "--num_examples",
+                    str(TRAINED_EVAL_CLIPS), "--duration", "2.0", "--fast", flag,
+                    "--out", str(Path(tmp) / f"eval_{profile}.json")])
+    eval_launches, eval_census = evals["fast"]
+    live_launches, live_census = evals["live"]
+    levels = reports["fast"]["levels"]
     kbps = [lv["kbps"] for lv in levels.values()]
     assert len(levels) == 12, list(levels)
     assert all(b >= a for a, b in zip(kbps, kbps[1:])) and kbps[-1] > kbps[0], kbps
+    assert kbps == [lv["kbps"] for lv in reports["live"]["levels"].values()]
     assert {m for m, _ in eval_census} == {"snake", "snake_approx_bf16"}, eval_census
+    assert {m for m, _ in live_census} == {"snake"}, live_census
 
     rows = {"snake_trained_train": snake_mode_row(
         train_census, "snake", gen, train_rows["census"], known=train_rows["fwd_checks"])}
@@ -1796,6 +1826,8 @@ def trained_phase(gen, serve_census, train_rows):
     rows.update({f"{mode}_trained_eval": snake_mode_row(eval_census, mode, gen,
                                                          serve_census)
                  for mode in ("snake", "snake_approx_bf16")})
+    rows["snake_trained_eval_live"] = snake_mode_row(live_census, "snake", gen,
+                                                     serve_census)
     rows["fused_rvq_trained"] = rvq_stream_row(calls, measure_launches["rvq"], gen)
     phase("trained", config=SYNTH_DEMO_YAML, corpus={**TRAINED_CORPUS, "seconds": 2.0},
           reductions={"num_iters": TRAINED_STEPS, "corpus": TRAINED_CORPUS,
@@ -1807,9 +1839,12 @@ def trained_phase(gen, serve_census, train_rows):
           losses=run["metrics"], train_launches=launches,
           peak_memory_gib=run["peak_memory_gib"], refused_under_1000_steps=refused,
           measure_lines=lines, measure_s=measure_s, measure_launches=measure_launches,
-          eval_levels={lv: {m: stats[m]["mean"] for m in ("SI-SDR", "mel")}
-                       | {"kbps": stats["kbps"]} for lv, stats in levels.items()},
-          eval_launches=eval_launches,
+          fast_decoder_vs_live_si_sdr_db=fast_decode_db,
+          eval_levels={profile: {lv: {m: stats[m]["mean"] for m in ("SI-SDR", "mel")}
+                                 | {"kbps": stats["kbps"]}
+                                 for lv, stats in report["levels"].items()}
+                       for profile, report in reports.items()},
+          eval_launches=eval_launches, eval_live_launches=live_launches,
           kernel_rows={k: {f: v for f, v in r.items() if f != "frames"}
                        for k, r in rows.items()},
           rvq_frames=rows["fused_rvq_trained"]["frames"])
@@ -2847,6 +2882,13 @@ def main() -> int:
             per=f"{what}, cli.evaluate of {TRAINED_EVAL_CLIPS} x 2 s test clips "
                 f"at the 12 default levels in {trained}: {row['launches']} "
                 f"launches over {row['shapes']} shapes ({row['new_shapes']} new)"))
+    row = trained_rows["snake_trained_eval_live"]
+    kernels.append(kernel_row(
+        "snake_trained_eval_live", row, **source,
+        per=f"exact float32 (the batch-1 encoder and the batch-12 live level "
+            f"decode), cli.evaluate --fast 0 of {TRAINED_EVAL_CLIPS} x 2 s test "
+            f"clips at the 12 default levels in {trained}: {row['launches']} "
+            f"launches over {row['shapes']} shapes ({row['new_shapes']} new)"))
     k1 = trained_rows["fused_rvq_trained"]
     kernels.append(
         {"name": "fused_rvq_trained", "route": "cuda", **rvq_source,
