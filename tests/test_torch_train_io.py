@@ -59,7 +59,7 @@ from vrvq_tpu_torch.models.discriminator import Discriminator
 from vrvq_tpu_torch.ops.resample import resample
 from vrvq_tpu_torch.train import checkpoint as ckpt
 from vrvq_tpu_torch.train import trainer
-from vrvq_tpu_torch.train.tracker import Tracker, read_events, timer, when
+from vrvq_tpu_torch.train.tracker import Tracker, read_events, when
 
 torch.set_num_threads(1)
 SR = 44100
@@ -214,9 +214,6 @@ def test_tracker_when_and_timer(tmp_path):
     assert gated() is None
     flag.append(1)
     assert gated() == "ran"
-    t = timer("f")
-    t(lambda: None)()
-    assert len(t.times["f"]) == 1
 
 
 # ----------------------------------------- train() with MSD, writer, samples

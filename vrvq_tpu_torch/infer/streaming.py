@@ -20,6 +20,16 @@ length) as state:
   * ``PacketCodec`` range-codes each chunk into one self-delimiting packet
     with adaptive models that persist across packets.
 
+Spans (``utils.annotate``): each pool's ``poll`` that took windows is
+``stream_pool.poll`` / ``decoder_pool.poll`` (payload: the windows) with the
+children ``.stack`` (host arrays), ``.put`` (the copy in; payload: the rows
+sent, padding included), ``.launch`` (the host issuing the batches) and
+``.fetch`` (the wait for the device and the copy out); each window's wait
+in ``StreamPool``'s queue, from the ``push`` that completed it to the start
+of the poll that took it, is a ``stream_pool.wait`` record keyed by
+``stream`` and ``window`` (its index in the stream); ``packet.pack`` and
+``packet.unpack`` carry the packet's bytes.
+
 A ``DAC_MOE`` streams in CBR only: its VBR mask is no prefix of the stages
 (``infer/codec_api.py``). Over a processor of several cards the pools pad
 each batch up to a multiple of the card count, so that every card takes an
@@ -31,12 +41,14 @@ from __future__ import annotations
 
 import math
 import struct
+import time
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.rangecoder import AdaptiveCoder
+from ..utils import add_span, annotate
 from .codec_api import CodecProcessor, check_counts_hold_mask
 
 
@@ -180,22 +192,28 @@ class StreamPool:
             proc.window_geometry(win_duration))
         self._rvq = proc.prepared_rvq()
         self._streams: dict = {}
-        self._pending: List[Tuple[Any, np.ndarray]] = []
+        # (sid, window, when it became ready (perf_counter_ns), its index)
+        self._pending: List[Tuple[Any, np.ndarray, int, int]] = []
 
     def add_stream(self, sid) -> None:
         if sid in self._streams:
             raise ValueError(f"stream {sid!r} already exists")
         self._streams[sid] = _WindowBuffer(self.window, self.hop, self.delay)
 
+    def _queue(self, sid, buf: _WindowBuffer, windows: List[np.ndarray]) -> None:
+        ready = time.perf_counter_ns()
+        first = buf._windows_out - len(windows)
+        self._pending += [(sid, w, ready, first + j) for j, w in enumerate(windows)]
+
     def push(self, sid, samples: np.ndarray) -> None:
         """Buffer a block for one stream; encoding happens in ``poll``."""
-        for w in self._streams[sid].push(samples):
-            self._pending.append((sid, w))
+        buf = self._streams[sid]
+        self._queue(sid, buf, buf.push(samples))
 
     def flush(self, sid) -> None:
         """Queue the stream's tail windows and remove it."""
-        for w in self._streams.pop(sid).flush():
-            self._pending.append((sid, w))
+        buf = self._streams.pop(sid)
+        self._queue(sid, buf, buf.flush())
 
     def poll(self) -> List[Tuple[Any, np.ndarray, Optional[np.ndarray]]]:
         """Encode every pending window, batched; returns ``[(sid, codes
@@ -203,26 +221,34 @@ class StreamPool:
         pending, self._pending = self._pending, []
         if not pending:
             return []
-        batches = [pending[i: i + self.max_batch]
-                   for i in range(0, len(pending), self.max_batch)]
-        sizes = [_padded_batch(len(take), self.proc.n_devices) for take in batches]
-        xs = np.zeros((sum(sizes), 1, self.window), np.float32)
-        rows = []  # the row of each pending window in xs
-        for take, r0 in zip(batches, np.cumsum([0] + sizes[:-1])):
-            for j, (_, w) in enumerate(take):
-                xs[r0 + j, 0] = w
-                rows.append(r0 + j)
-        codes, counts = [], []
-        with torch.inference_mode():
-            for x in self.proc.put_batches(xs, sizes):
-                c, n = self.proc.encode_rows(False, x, self.n_quantizers,
-                                             self.level, self._rvq)
-                codes.append(c)
-                counts.append(n)
-            codes = torch.cat(codes).cpu().numpy()
-            counts = torch.cat(counts).cpu().numpy() if self.vbr else None
+        with annotate("stream_pool.poll", payload=len(pending)) as span:
+            with annotate("stream_pool.poll.stack"):
+                batches = [pending[i: i + self.max_batch]
+                           for i in range(0, len(pending), self.max_batch)]
+                sizes = [_padded_batch(len(take), self.proc.n_devices) for take in batches]
+                xs = np.zeros((sum(sizes), 1, self.window), np.float32)
+                rows = []  # the row of each pending window in xs
+                for take, r0 in zip(batches, np.cumsum([0] + sizes[:-1])):
+                    for j, (_, w, _, _) in enumerate(take):
+                        xs[r0 + j, 0] = w
+                        rows.append(r0 + j)
+            codes, counts = [], []
+            with torch.inference_mode():
+                with annotate("stream_pool.poll.put", payload=len(xs)):
+                    on_device = self.proc.put_batches(xs, sizes)
+                with annotate("stream_pool.poll.launch"):
+                    for x in on_device:
+                        c, n = self.proc.encode_rows(False, x, self.n_quantizers,
+                                                     self.level, self._rvq)
+                        codes.append(c)
+                        counts.append(n)
+                with annotate("stream_pool.poll.fetch"):
+                    codes = torch.cat(codes).cpu().numpy()
+                    counts = torch.cat(counts).cpu().numpy() if self.vbr else None
+        for sid, _, ready, index in pending:
+            add_span("stream_pool.wait", ready, span.start_ns, stream=sid, window=index)
         return [(sid, codes[r], counts[r] if self.vbr else None)
-                for (sid, _), r in zip(pending, rows)]
+                for (sid, _, _, _), r in zip(pending, rows)]
 
 
 class DecoderPool:
@@ -253,23 +279,29 @@ class DecoderPool:
         pending, self._pending = self._pending, []
         if not pending:
             return []
-        batches = [pending[i: i + self.max_batch]
-                   for i in range(0, len(pending), self.max_batch)]
-        sizes = [_padded_batch(len(take), self.proc.n_devices) for take in batches]
-        nq, cf = pending[0][1].shape[0], self.chunk_frames
-        codes = np.zeros((sum(sizes), nq, cf), np.int32)
-        mask = np.zeros((sum(sizes), nq, cf), np.float32)
-        rows = []
-        for take, r0 in zip(batches, np.cumsum([0] + sizes[:-1])):
-            for j, (_, c, cnt) in enumerate(take):
-                codes[r0 + j] = c
-                mask[r0 + j] = _stage_mask(cnt, nq, cf)
-                rows.append(r0 + j)
-        with torch.inference_mode():
-            parts = [self.proc.decode_rows(False, c.map(torch.Tensor.long), m)
-                     for c, m in zip(self.proc.put_batches(codes, sizes),
-                                     self.proc.put_batches(mask, sizes))]
-            audio = torch.cat(parts).cpu().numpy()
+        with annotate("decoder_pool.poll", payload=len(pending)):
+            with annotate("decoder_pool.poll.stack"):
+                batches = [pending[i: i + self.max_batch]
+                           for i in range(0, len(pending), self.max_batch)]
+                sizes = [_padded_batch(len(take), self.proc.n_devices) for take in batches]
+                nq, cf = pending[0][1].shape[0], self.chunk_frames
+                codes = np.zeros((sum(sizes), nq, cf), np.int32)
+                mask = np.zeros((sum(sizes), nq, cf), np.float32)
+                rows = []
+                for take, r0 in zip(batches, np.cumsum([0] + sizes[:-1])):
+                    for j, (_, c, cnt) in enumerate(take):
+                        codes[r0 + j] = c
+                        mask[r0 + j] = _stage_mask(cnt, nq, cf)
+                        rows.append(r0 + j)
+            with torch.inference_mode():
+                with annotate("decoder_pool.poll.put", payload=len(codes)):
+                    codes = self.proc.put_batches(codes, sizes)
+                    mask = self.proc.put_batches(mask, sizes)
+                with annotate("decoder_pool.poll.launch"):
+                    parts = [self.proc.decode_rows(False, c.map(torch.Tensor.long), m)
+                             for c, m in zip(codes, mask)]
+                with annotate("decoder_pool.poll.fetch"):
+                    audio = torch.cat(parts).cpu().numpy()
         return [(sid, audio[r, 0]) for (sid, _, _), r in zip(pending, rows)]
 
 
@@ -366,6 +398,12 @@ class PacketCodec:
         return stage[stage < np.asarray(counts)[:, None]]
 
     def pack(self, codes: np.ndarray, counts: Optional[np.ndarray] = None) -> bytes:
+        with annotate("packet.pack") as span:
+            packet = self._pack(codes, counts)
+            span.payload = len(packet)
+        return packet
+
+    def _pack(self, codes: np.ndarray, counts: Optional[np.ndarray]) -> bytes:
         codes = np.asarray(codes)
         nq, frames = codes.shape
         if nq > self.n_codebooks:
@@ -384,6 +422,10 @@ class PacketCodec:
         return header + body + struct.pack("<I", len(payload)) + payload
 
     def unpack(self, packet: bytes) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        with annotate("packet.unpack", payload=len(packet)):
+            return self._unpack(packet)
+
+    def _unpack(self, packet: bytes) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         frames, vbr, nq = struct.unpack_from("<HBB", packet, 0)
         off = 4
         counts = None

@@ -14,7 +14,6 @@ PyTorch versions.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import hashlib
@@ -23,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import counter
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -30,10 +31,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Kernel launches by kernel name. Each wrapper adds one where it launches its
-# kernel and nowhere else, so a run can show which kernels its path went
-# through (clear it before the run, read it after).
-LAUNCHES: collections.Counter = collections.Counter()
+# Kernel launches by kernel name, the "launches" group of the counters of
+# ``utils``. Each wrapper adds one (``count("launches.<kernel>")``) where it
+# launches its kernel and nowhere else, so a run can show which kernels its
+# path went through (clear it before the run, read it after).
+LAUNCHES = counter("launches")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {

@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..kernels import LAUNCHES, check, library
+from ..kernels import check, library
+from ..utils import count
 
 
 class RVQWeights(NamedTuple):
@@ -310,7 +311,7 @@ def fused_rvq_prepared(
             cs,
             torch.cuda.current_stream(z.device).cuda_stream,
         )
-    LAUNCHES["rvq"] += 1
+    count("launches.rvq")
     check(err, "fused_rvq")
     return z_q, codes
 

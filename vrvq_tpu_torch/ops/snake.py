@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import LAUNCHES, check, library
+from ..kernels import check, library
+from ..utils import count
 
 # float32 values of the JAX package's constants (vrvq_tpu/ops/snake.py):
 # 1/pi, the Cody-Waite split of pi, and sin^2(r) ~= s P(s), s = r^2, P of
@@ -210,7 +211,7 @@ def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     name = "snake_approx_backward" if approx else "snake_backward"
-    LAUNCHES[name] += 1
+    count("launches." + name)
     check(err, name)
     return dx, dalpha
 
@@ -231,7 +232,7 @@ def _forward(x: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tensor
             x.shape[1], x.shape[2], DTYPES[x.dtype], int(approx),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    LAUNCHES[mode_name(x.dtype, approx)] += 1
+    count("launches." + mode_name(x.dtype, approx))
     check(err, "snake")
     return y
 

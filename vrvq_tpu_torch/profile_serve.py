@@ -21,7 +21,9 @@ codec). Then:
   * traces one more compress and decompress with ``torch.profiler`` and sums
     the device time of every kernel by class (conv, Snake kernel, fused-RVQ
     kernel, matmul, elementwise, copies), with the device's busy share of the
-    traced wall time (one stream, so kernels do not overlap).
+    traced wall time (the union of the kernels' intervals) and its idle
+    time by the innermost program span open (``idle_ms_by_span``,
+    ``utils.idle_by_span``: the pools' polls and their parts, packets).
 
 Prints one JSON line. Needs an NVIDIA card.
 """
@@ -38,6 +40,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
+from vrvq_tpu_torch import utils
 from vrvq_tpu_torch.infer import fast, streaming
 
 CLIP_S = 10.0
@@ -129,25 +132,31 @@ def main() -> None:
     }))
 
 
-def device_summary(prof, traced_s: float) -> dict:
-    """The device time of a trace's kernels, by class and by name, with the
-    busy share of ``traced_s`` of wall time and the kernel count."""
+def device_summary(prof, traced_s: float, classify=kernel_class, top: int = 12) -> dict:
+    """The device time of a trace's operations, by class (``classify``) and
+    by name; the busy share of ``traced_s`` of wall time (the union of the
+    operations' intervals: operations on several streams overlap); the
+    operation count; and the idle ms by the innermost program span open."""
     by_class = collections.Counter()
     by_name = collections.Counter()
-    n_kernels = 0
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    intervals = []
+    for name, on_device, annotation, start, end in utils.profile_events(prof):
+        if not utils.is_device_op(name, on_device, annotation):
             continue
-        us = evt.time_range.elapsed_us()
-        by_class[kernel_class(evt.name)] += us / 1e3
-        by_name[evt.name[:80]] += us / 1e3
-        n_kernels += 1
-    device_ms = sum(by_class.values())
-    return {"traced_wall_ms": traced_s * 1e3, "device_ms": device_ms,
-            "device_busy_share": device_ms / (traced_s * 1e3),
-            "device_kernels": n_kernels,
+        by_class[classify(name)] += (end - start) / 1e6
+        by_name[name[:80]] += (end - start) / 1e6
+        intervals.append((start, end))
+    busy_ns, reach = 0, 0
+    for start, end in sorted(intervals):
+        busy_ns += max(0, end - max(start, reach))
+        reach = max(reach, end)
+    return {"traced_wall_ms": traced_s * 1e3, "device_ms": sum(by_class.values()),
+            "device_busy_share": busy_ns / 1e6 / (traced_s * 1e3),
+            "device_kernels": len(intervals),
             "device_ms_by_class": dict(by_class.most_common()),
-            "top_kernels_ms": dict(by_name.most_common(12))}
+            "top_kernels_ms": dict(by_name.most_common(top)),
+            "idle_ms_by_span": {k: v * 1e3 for k, v in sorted(
+                utils.idle_by_span(prof).items(), key=lambda kv: -kv[1])}}
 
 
 def one_shot(model, audio: torch.Tensor, trace=None,

@@ -16,10 +16,12 @@ directory, in micro-batches of 16 x 0.38 s: a batch of 16 times the config's
     convolutions (forward, data and weight gradients), the Snake kernels
     (K2 forward, K2 backward and its dalpha reduction), FFTs, matmuls, the
     optimizers' multi-tensor kernels, elementwise and reductions, copies;
-    with the device's busy share of the traced wall time, and that device
-    time over the median untraced step (the profiler slows the host); and
-    the device time of the convolutions' backward by the shapes of their
-    input and weight (which convs the backward algorithms cost).
+    with the device's busy share of the traced wall time (the union of the
+    kernels' intervals), its idle time by the innermost program span open
+    (``idle_ms_by_span``, ``utils.idle_by_span``: the step's phases, the
+    clips' waits for the gradients' norm), and the device time of the
+    convolutions' backward by the shapes of their input and weight (which
+    convs the backward algorithms cost).
 
 Prints one JSON line. Needs an NVIDIA card.
 """
@@ -39,6 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.config import FLAGSHIP_YAML, REPO, Config
+from vrvq_tpu_torch.profile_serve import device_summary
 from vrvq_tpu_torch.train import trainer
 
 MICRO_BATCH = 16
@@ -132,19 +135,6 @@ def main() -> None:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    by_class, by_name = collections.Counter(), collections.Counter()
-    n_kernels = 0
-    for evt in prof.events():
-        # user annotations (``Optimizer.step#AdamW.step``) span kernels that
-        # are counted on their own
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        ms = evt.time_range.elapsed_us() / 1e3
-        by_class[kernel_class(evt.name)] += ms
-        by_name[evt.name[:80]] += ms
-        n_kernels += 1
-    device_ms = sum(by_class.values())
     conv_bwd = collections.Counter()
     for avg in prof.key_averages(group_by_input_shape=True):
         if avg.key == "aten::convolution_backward":  # (grad, input, weight, ...)
@@ -159,14 +149,7 @@ def main() -> None:
         "duration_s": DURATION_S, "step_ms": step_ms, "data_ms": data_ms,
         "median_step_ms": median_ms, "clips_per_s": batch_size / (median_ms / 1e3),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "traced_wall_ms": traced_s * 1e3, "device_ms": device_ms,
-        "device_busy_share": device_ms / (traced_s * 1e3),
-        # the traced step's device time over an untraced step's host time:
-        # the profiler slows the host, not the kernels
-        "device_share_of_untraced_step": device_ms / median_ms,
-        "device_kernels": n_kernels,
-        "device_ms_by_class": dict(by_class.most_common()),
-        "top_kernels_ms": dict(by_name.most_common(15)),
+        **device_summary(prof, traced_s, kernel_class, top=15),
         "conv_backward_ms_by_shape": dict(conv_bwd.most_common(15)),
     }))
 

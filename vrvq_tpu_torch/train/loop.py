@@ -44,6 +44,17 @@ and ``index_add_`` add with atomics): a step is a function of the state,
 the batch and the draws, as the JAX step is, so a step run twice, or a run
 resumed, gives the same bits, on the card as on the CPU.
 
+Spans (``utils.annotate``): the step is ``train.step``; one batch's
+children are ``train.forward``, ``train.disc`` (the discriminator's
+forwards, loss, backward, all-reduce and update), ``train.gen_losses``,
+``train.gen_backward`` and ``train.gen_update`` (the all-reduce and the
+update); each update's clip waits for the gradients' norm in a
+``clip_sync`` span (``train/state.py``). With micro-batches the
+discriminator phase's forwards lie in ``train.disc`` and each micro-batch's
+generator forward in its ``train.gen_losses``, so the discriminator phase
+is ``train.forward`` + ``train.disc`` and the generator phase the other
+three either way.
+
 Data parallelism: in a process group (``parallel``) ``audio`` holds this
 rank's rows of the global batch (``parallel.local_rows``); the draws are the
 global batch's, from the step's generator or pinned, and each rank keeps
@@ -67,6 +78,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import deterministic_cudnn
 from ..losses.gan import discriminator_loss, generator_loss
 from ..parallel import dist as pdist
+from ..utils import annotate
 from .state import TrainState
 
 # metrics that are the same on every rank without an average
@@ -123,25 +135,30 @@ def make_train_step(lambdas: Mapping[str, float], stft_loss, mel_loss,
         out: Dict[str, torch.Tensor] = {}
 
         # 1. the generator forward
-        g_out = forward(gen, audio, draws)
-        recons = g_out["audio"]
+        with annotate("train.forward"):
+            g_out = forward(gen, audio, draws)
+            recons = g_out["audio"]
 
         # 2. the discriminator update
-        d_loss = discriminator_loss(disc(recons.detach()), disc(audio))
-        state.opt_d.zero_grad()
-        d_loss.backward()
-        pdist.all_reduce_mean_(state.opt_d.params)
-        out["other/grad_norm_d"] = state.opt_d.step()
-        out["adv/disc_loss"] = d_loss
+        with annotate("train.disc"):
+            d_loss = discriminator_loss(disc(recons.detach()), disc(audio))
+            state.opt_d.zero_grad()
+            d_loss.backward()
+            pdist.all_reduce_mean_(state.opt_d.params)
+            out["other/grad_norm_d"] = state.opt_d.step()
+            out["adv/disc_loss"] = d_loss
 
         # 3. the generator losses against the updated discriminator
-        losses = g_losses(gen, disc, g_out, recons, audio, total)
+        with annotate("train.gen_losses"):
+            losses = g_losses(gen, disc, g_out, recons, audio, total)
 
         # 4. the generator update
-        state.opt_g.zero_grad()
-        losses["loss"].backward(inputs=state.opt_g.params)
-        pdist.all_reduce_mean_(state.opt_g.params)
-        out["other/grad_norm_g"] = state.opt_g.step()
+        with annotate("train.gen_backward"):
+            state.opt_g.zero_grad()
+            losses["loss"].backward(inputs=state.opt_g.params)
+        with annotate("train.gen_update"):
+            pdist.all_reduce_mean_(state.opt_g.params)
+            out["other/grad_norm_g"] = state.opt_g.step()
         out.update(losses)
         return out
 
@@ -150,31 +167,35 @@ def make_train_step(lambdas: Mapping[str, float], stft_loss, mel_loss,
         micro = audio.chunk(accum_steps)
 
         # the discriminator phase: the mean gradient over the micro-batches
-        state.opt_d.zero_grad()
-        d_losses = []
-        for audio_i, draws_i in zip(micro, draws):
-            with torch.no_grad():
-                recons = forward(gen, audio_i, draws_i)["audio"]
-            d_loss = discriminator_loss(disc(recons), disc(audio_i))
-            d_loss.backward()
-            d_losses.append(d_loss.detach())
-        _mean_grads(state.opt_d.params, accum_steps)
-        pdist.all_reduce_mean_(state.opt_d.params)
-        out = {"other/grad_norm_d": state.opt_d.step(),
-               "adv/disc_loss": torch.stack(d_losses).mean()}
+        with annotate("train.disc"):
+            state.opt_d.zero_grad()
+            d_losses = []
+            for audio_i, draws_i in zip(micro, draws):
+                with torch.no_grad():
+                    recons = forward(gen, audio_i, draws_i)["audio"]
+                d_loss = discriminator_loss(disc(recons), disc(audio_i))
+                d_loss.backward()
+                d_losses.append(d_loss.detach())
+            _mean_grads(state.opt_d.params, accum_steps)
+            pdist.all_reduce_mean_(state.opt_d.params)
+            out = {"other/grad_norm_d": state.opt_d.step(),
+                   "adv/disc_loss": torch.stack(d_losses).mean()}
 
         # the generator phase, against the updated discriminator
         state.opt_g.zero_grad()
         g_sums: Dict[str, torch.Tensor] = {}
         for audio_i, draws_i in zip(micro, draws):
-            g_out = forward(gen, audio_i, draws_i)
-            losses = g_losses(gen, disc, g_out, g_out["audio"], audio_i, total)
-            losses["loss"].backward(inputs=state.opt_g.params)
+            with annotate("train.gen_losses"):
+                g_out = forward(gen, audio_i, draws_i)
+                losses = g_losses(gen, disc, g_out, g_out["audio"], audio_i, total)
+            with annotate("train.gen_backward"):
+                losses["loss"].backward(inputs=state.opt_g.params)
             for key, value in losses.items():
                 g_sums[key] = g_sums.get(key, 0.0) + value.detach()
-        _mean_grads(state.opt_g.params, accum_steps)
-        pdist.all_reduce_mean_(state.opt_g.params)
-        out["other/grad_norm_g"] = state.opt_g.step()
+        with annotate("train.gen_update"):
+            _mean_grads(state.opt_g.params, accum_steps)
+            pdist.all_reduce_mean_(state.opt_g.params)
+            out["other/grad_norm_g"] = state.opt_g.step()
         out.update({key: value / accum_steps for key, value in g_sums.items()})
         return out
 
@@ -197,24 +218,25 @@ def make_train_step(lambdas: Mapping[str, float], stft_loss, mel_loss,
         if local % accum_steps:
             raise ValueError(f"batch {local * world} is not divisible by "
                              f"grad_accum_steps={accum_steps} x {world} ranks")
-        total = local * world // accum_steps  # rows of a global micro-batch
-        rows = (rank * (local // accum_steps), total)
-        if accum_steps == 1:
-            draws = draws_of(state, total, generator, audio.device, levels, depths)
-            out = one_batch(state, audio, {**draws, "rows": rows}, total)
-        else:
-            draws = [{**draws_of(state, total, generator, audio.device, lv, dp),
-                      "rows": rows} for lv, dp in zip(
-                levels or [None] * accum_steps, depths or [None] * accum_steps)]
-            out = accumulated(state, audio, draws, total)
-        state.step += 1
-        out = {k: torch.as_tensor(v).detach() for k, v in out.items()}
-        averaged = sorted(k for k in out if k not in GLOBAL_METRICS)
-        if world > 1:
-            means = pdist.mean_over_ranks(torch.stack([out[k].float() for k in averaged]))
-            out.update(zip(averaged, means))
-        out["other/batch_size"] = torch.tensor(float(local * world))
-        return dict(sorted(out.items()))
+        with annotate("train.step"):
+            total = local * world // accum_steps  # rows of a global micro-batch
+            rows = (rank * (local // accum_steps), total)
+            if accum_steps == 1:
+                draws = draws_of(state, total, generator, audio.device, levels, depths)
+                out = one_batch(state, audio, {**draws, "rows": rows}, total)
+            else:
+                draws = [{**draws_of(state, total, generator, audio.device, lv, dp),
+                          "rows": rows} for lv, dp in zip(
+                    levels or [None] * accum_steps, depths or [None] * accum_steps)]
+                out = accumulated(state, audio, draws, total)
+            state.step += 1
+            out = {k: torch.as_tensor(v).detach() for k, v in out.items()}
+            averaged = sorted(k for k in out if k not in GLOBAL_METRICS)
+            if world > 1:
+                means = pdist.mean_over_ranks(torch.stack([out[k].float() for k in averaged]))
+                out.update(zip(averaged, means))
+            out["other/batch_size"] = torch.tensor(float(local * world))
+            return dict(sorted(out.items()))
 
     return train_step
 

@@ -5,7 +5,8 @@ package's optax chain: clipping by global norm, then AdamW (β 0.8 / 0.99,
 ε 1e-8, weight decay 1e-2) at the learning rate of the schedule evaluated at
 the update count before the update (optax's ``count``). The clip is optax's
 expression, ``(g / norm) * max_norm`` where ``norm >= max_norm`` (not
-``clip_grad_norm_``, which adds 1e-6 to the norm).
+``clip_grad_norm_``, which adds 1e-6 to the norm). Reading the norm on the
+host waits for the gradients: that wait is the span ``clip_sync``.
 
 ``zero=True`` shards AdamW's state over the ranks of the process group
 (``parallel.zero_optimizer``, the JAX package's ``zero_shard_opt_state``):
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from ..parallel import dist as pdist
+from ..utils import annotate
 from .schedule import exponential_lr
 
 
@@ -62,9 +64,12 @@ class Optimizer:
         for p, g in zip(self.params, grads):
             p.grad = g
         norm = global_norm(grads)
-        if self.max_grad_norm is not None and float(norm) >= self.max_grad_norm:
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.max_grad_norm)
+        if self.max_grad_norm is not None:
+            with annotate("clip_sync"):
+                clip = float(norm) >= self.max_grad_norm
+            if clip:
+                torch._foreach_div_(grads, norm)
+                torch._foreach_mul_(grads, self.max_grad_norm)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()

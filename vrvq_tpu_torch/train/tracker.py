@@ -5,14 +5,13 @@ dict for checkpoints, and TensorBoard scalars through ``writer`` (a
 step, the tags, values and steps that the JAX tracker's ``_flush`` writes.
 In a process group every rank keeps the same sums (the metrics are the
 ranks' means); only rank 0 prints, writes the log and writes to ``writer``.
-``when`` and ``timer`` are the JAX module's decorators; ``read_events``
+``when`` is the JAX module's decorator; ``read_events``
 reads an event file back (for the tests and the smoke).
 """
 
 from __future__ import annotations
 
 import struct
-import time
 from collections import defaultdict
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -101,26 +100,6 @@ def when(condition: Callable[[], bool]):
         return wrapped
 
     return deco
-
-
-class timer:
-    """Decorator recording each call's wall time (s) in ``times[name]``."""
-
-    def __init__(self, name: Optional[str] = None):
-        self.name = name
-        self.times: Dict[str, list] = defaultdict(list)
-
-    def __call__(self, fn):
-        name = self.name or fn.__name__
-
-        def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            self.times[name].append(time.perf_counter() - t0)
-            return out
-
-        wrapped.__name__ = fn.__name__
-        return wrapped
 
 
 def read_events(logdir) -> Dict[str, List[Tuple[int, str, Any]]]:

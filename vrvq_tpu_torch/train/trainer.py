@@ -43,7 +43,6 @@ import dataclasses
 import inspect
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Mapping, Optional, Union
@@ -61,6 +60,7 @@ from ..losses import L1Loss, MelSpectrogramLoss, MultiScaleSTFTLoss
 from ..models.dac_vrvq import DAC_VRVQ
 from ..models.discriminator import Discriminator
 from ..parallel import dist as pdist
+from ..utils import annotate
 from . import checkpoint as ckpt
 from .loop import make_train_step, make_val_step
 from .state import TrainState, make_optimizer
@@ -145,6 +145,7 @@ class State:
     tracker: Tracker
     device: torch.device
     metrics: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    # each step's spans ``trainer.step`` and ``trainer.data``, in ms
     step_ms: List[float] = dataclasses.field(default_factory=list)
     data_ms: List[float] = dataclasses.field(default_factory=list)
 
@@ -502,22 +503,21 @@ def _loop(cfg: Config, state: State, save_path, batch_size: int,
     val_idx = list(cfg.get("val_idx", range(8)))
     for step in range(tracker.step, num_iters):
         tracker.step = step
-        t0 = time.perf_counter()
-        if batches is None:
-            batch = load_batch(state.train_data, step, batch_size, rows)
-        else:
-            loaded, batch = next(batches)
-            assert loaded == step, (loaded, step)
-        audio = prepare_audio(state.train_data, batch, device)
-        _sync(device)
-        t1 = time.perf_counter()
-        metrics = state.train_step(state.train_state, audio,
-                                   generator=step_generator(seed, step, device))
-        values = torch.stack([v.float().to(device) for v in metrics.values()]).tolist()
-        _sync(device)
-        t2 = time.perf_counter()
-        state.data_ms.append(1e3 * (t1 - t0))
-        state.step_ms.append(1e3 * (t2 - t1))
+        with annotate("trainer.data") as data:
+            if batches is None:
+                batch = load_batch(state.train_data, step, batch_size, rows)
+            else:
+                loaded, batch = next(batches)
+                assert loaded == step, (loaded, step)
+            audio = prepare_audio(state.train_data, batch, device)
+            _sync(device)
+        with annotate("trainer.step") as timed:
+            metrics = state.train_step(state.train_state, audio,
+                                       generator=step_generator(seed, step, device))
+            values = torch.stack([v.float().to(device) for v in metrics.values()]).tolist()
+            _sync(device)
+        state.data_ms.append(data.ns / 1e6)
+        state.step_ms.append(timed.ns / 1e6)
         state.metrics.append(dict(zip(metrics, values)))
         tracker.log_metrics("train", state.metrics[-1])
         last = step == num_iters - 1
