@@ -29,10 +29,17 @@ one line for each:
            model's; the fast (bfloat16 folded decoder, polynomial Snake),
            turbo (polynomial Snake in the encoder too) and bfloat16-exact
            profiles serve the 10 s clip (launches of each Snake mode, census,
-           real-time factors); the Snake kernel in all four modes against
-           its plain versions at every census shape, each mode timed at the
-           census of the profile that runs it; decode SI-SDR of the fast
-           profile against the exact one; ``turbo_gate`` on seeded clips;
+           real-time factors; the bfloat16 decoders in K2's channels-last
+           modes); the Snake kernel in all eight modes (four, in either
+           layout) against its plain versions at every census shape, each
+           mode timed at the census of the profile that runs it; decode
+           SI-SDR of the fast profile against the exact one; ``turbo_gate``
+           on seeded clips; the fast decoder's conv census at 16 x 10 s
+           (``profile_stages.conv_census``: each conv geometry's ms and
+           kernels in (B, C, T) and channels-last as the decoder runs it,
+           one line each; the channels-last conv within one bfloat16
+           rounding of the plain conv, on no SIMT or layout-transpose
+           kernel);
   pool     8 streams x 10 s through ``StreamPool(max_batch=8)`` and
            ``DecoderPool`` in 1 s pushes: flips against the single-stream
            codes (near ties and others), decode agreement with the
@@ -228,7 +235,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch import kernel_times as kt
-from vrvq_tpu_torch import profile_serve
+from vrvq_tpu_torch import profile_serve, profile_stages
 from vrvq_tpu_torch import reference
 from vrvq_tpu_torch.infer import fast, streaming
 from vrvq_tpu_torch.cli import evaluate as cli_eval
@@ -273,7 +280,10 @@ MIN_FAST_DB = 30.0  # fast decode against exact (turbo_gate's bar)
 # same decode with TF32 convs (printed as the control, which must fall under)
 MIN_REFERENCE_DB = 90.0
 SNAKE_BF16_TOL = 0.0  # bfloat16 modes: the plain version rounds as the kernel
-SNAKE_MODES = ("snake", "snake_approx", "snake_bf16", "snake_approx_bf16")
+# K2's modes, each in (B, C, T) and channels-last (``_cl``, the bfloat16
+# decoder's layout)
+SNAKE_MODES = tuple(mode + layout for layout in ("", "_cl") for mode in (
+    "snake", "snake_approx", "snake_bf16", "snake_approx_bf16"))
 # K1's codebook shapes beyond the flagship's (n_q, D, K, d), at a window's
 # frames: every codebook width, and sizes no cluster of 4-wide slices splits
 TRAIN_WAVS = 32  # seeded 1 s clips the train phase's loader reads
@@ -335,6 +345,13 @@ MIN_AAC_DB = 15.0  # tests/test_mp4.py's, after aligning out the priming
 # --batch 16 and profile_stages measure that shape)
 PACKED_BATCH = 4
 PACKED_CLIP_S = 10.0
+# the fast decoder's conv census at the one-shot transcoder's shape
+CENSUS_BATCH = profile_stages.BATCH
+CENSUS_CLIP_S = profile_stages.CLIP_S
+# kernels no channels-last conv of that decoder may run: cuDNN's SIMT convs
+# and its layout transposes
+CONV_KERNELS_OFF_THE_TENSOR_CORES = ("implicit_convolve_sgemm", "direct_kernel",
+                                     "nchwToNhwc", "nhwcToNchw")
 PACKED_RVQ_FRAMES = 16 * RVQ_FRAMES  # 13,792: the one shot of 16 x 10 s
 DECODE_PACKINGS = {"decode_packed_1": dict(decode_packed=1),
                    "decode_packed_2": dict(decode_packed=2),
@@ -383,13 +400,20 @@ def device_phase():
     return smi
 
 
+def mode_inputs(shape, gen, mode: str):
+    """``kt.snake_inputs`` of ``mode`` (an ``ops.snake.mode_name``): its
+    dtype and layout."""
+    dtype = torch.bfloat16 if "_bf16" in mode else torch.float32
+    return kt.snake_inputs(shape, gen, dtype, channels_last=mode.endswith("_cl"))
+
+
 def snake_check(shape, gen, mode: str = "snake", timed: bool = True):
     """K2 in ``mode`` (an ``ops.snake.mode_name``) against its plain version
     at ``shape``; the same inputs timed when ``timed``. float32 modes within
     ``SNAKE_TOL``, bfloat16 ones bit-identical."""
-    dtype = torch.bfloat16 if mode.endswith("_bf16") else torch.float32
-    out = kt.time_snake(snake_ops, *kt.snake_inputs(shape, gen, dtype),
-                        approx="approx" in mode, timed=timed)
+    x, alpha = mode_inputs(shape, gen, mode)
+    dtype = x.dtype
+    out = kt.time_snake(snake_ops, x, alpha, approx="approx" in mode, timed=timed)
     tol = SNAKE_BF16_TOL if dtype == torch.bfloat16 else SNAKE_TOL
     assert out["max_abs_err"] <= tol, (mode, shape, out["max_abs_err"])
     return out
@@ -615,9 +639,10 @@ def census_row(checks, census):
 
 
 # the path whose census times each Snake mode: exact float32 in the serve
-# phase, the others in the profile that runs them
-MODE_PATHS = {"snake_approx_bf16": "fast", "snake_approx": "turbo",
-              "snake_bf16": "bf16_exact"}
+# phase, the others in the profile that runs them (the bfloat16 decoders
+# channels-last)
+MODE_PATHS = {"snake_approx_bf16_cl": "fast", "snake_approx": "turbo",
+              "snake_bf16_cl": "bf16_exact"}
 
 
 def fast_phase(model, serve_dac, census, gen):
@@ -656,10 +681,9 @@ def fast_phase(model, serve_dac, census, gen):
     # then each mode timed at the census of its path
     shapes = sorted({s for run in runs.values() for _, s in run["census"]}
                     | set(census))
-    modes = ("snake", *MODE_PATHS)
     with torch.inference_mode():
         errors = {mode: max(snake_check(s, gen, mode, timed=False)["max_abs_err"]
-                            for s in shapes) for mode in modes}
+                            for s in shapes) for mode in SNAKE_MODES}
         rows = {}
         for mode, path in MODE_PATHS.items():
             mode_census = of_mode(runs[path]["census"], mode)
@@ -669,9 +693,39 @@ def fast_phase(model, serve_dac, census, gen):
                           "path": path}
 
     gate = fast.turbo_gate(model, clips=fast.synthetic_probe(sr, SEED))
+    # the fast decoder's conv census at the one-shot transcoder's shape: each
+    # conv geometry timed in (B, C, T) (the layout before) and channels-last
+    with torch.inference_mode():
+        latents = torch.randn(CENSUS_BATCH, model.config.resolved_latent_dim,
+                              -(-int(CENSUS_CLIP_S * sr) // model.hop_length),
+                              generator=gen).to(DEVICE)
+        conv_census = profile_stages.conv_census(profiles["fast"].decoder, latents)
+    del latents
+    torch.cuda.empty_cache()
+    for row in conv_census:
+        print(json.dumps({"conv_census": {k: row[k] for k in (
+            "conv", "calls", "cin", "cout", "k", "stride", "dilation", "t_out",
+            "form", "bound_ms", "err_ulps")}, **{layout: {
+                "ms": row[layout]["ms"], "kernels": row[layout]["kernels"][:2]}
+                for layout in ("ncl", "cl")}}), flush=True)
+    for row in conv_census:
+        assert row["err_ulps"] <= 1.0, row
+        slow = [k for k, _ in row["cl"]["kernels"] if any(
+            name in k for name in CONV_KERNELS_OFF_THE_TENSOR_CORES)]
+        assert not slow, (row["conv"], slow)
     phase("fast", folded_codes_equal=True, folded_audio_equal=True,
           fast_decode_si_sdr_db=fast_db, census_shapes=len(shapes),
           max_abs_err_by_mode=errors, snake_by_mode=rows,
+          k2_channels_last_launches={name: {
+              k: n for k, n in run["launches"].items()
+              if k.startswith("snake") and k.endswith("_cl")}
+              for name, run in runs.items()},
+          conv_census={"batch": CENSUS_BATCH, "clip_s": CENSUS_CLIP_S,
+                       "rows": conv_census,
+                       "ms": {"ncl": sum(r["ncl"]["ms"] * r["calls"] for r in conv_census),
+                              "decoder": sum(r["cl"]["ms"] * r["calls"]
+                                             for r in conv_census)},
+                       "bound_ms": sum(r["bound_ms"] * r["calls"] for r in conv_census)},
           profiles={name: {k: run[k] for k in (
               "encode_rtf", "decode_rtf", "launches", "dac_bytes")}
               for name, run in runs.items()},
@@ -1079,7 +1133,7 @@ def eval_phase(gen, serve_census):
         assert launches.get("snake", 0) > 0 and set(launches) == {"snake"}, launches
         fast_report, fast_launches, fast_census = counted(cli_eval.main, eval_argv(
             folder, Path(tmp) / "fast.json", "--fast", "1"))
-        assert fast_launches.get("snake_approx_bf16", 0) > 0, fast_launches
+        assert fast_launches.get("snake_approx_bf16_cl", 0) > 0, fast_launches
 
         # one clip through the kernels and through the plain versions
         one = parse_args(eval_argv(folder, Path(tmp) / "one.json", "--fast", "0",
@@ -1116,7 +1170,7 @@ def eval_phase(gen, serve_census):
     # --fast 1 runs the encoder's Snakes exact in float32: those outside the
     # --fast 0 census (none expected) are held against the plain version too
     assert {m for m, _ in census} == {"snake"}, census
-    assert {m for m, _ in fast_census} <= {"snake", "snake_approx_bf16"}, fast_census
+    assert {m for m, _ in fast_census} <= {"snake", "snake_approx_bf16_cl"}, fast_census
     assert {m for m, _ in stream_census} == {"snake"}, stream_census
     fast_exact = of_mode(fast_census, "snake")
     outside = sorted(set(fast_exact) - set(of_mode(census, "snake")))
@@ -1124,7 +1178,7 @@ def eval_phase(gen, serve_census):
         for shape in outside:
             snake_check(shape, gen, timed=False)
     rows = {"eval": snake_mode_row(census, "snake", gen, serve_census),
-            "eval_fast": {**snake_mode_row(fast_census, "snake_approx_bf16", gen,
+            "eval_fast": {**snake_mode_row(fast_census, "snake_approx_bf16_cl", gen,
                                            serve_census),
                           "exact_launches": sum(fast_exact.values()),
                           "exact_shapes_outside_eval": len(outside)},
@@ -1786,8 +1840,8 @@ def trained_phase(gen, serve_census, train_rows):
         probe = f"held-out corpus {corpus / 'test'} (8 clips)"
         assert all(ln["probe"] == probe for ln in lines[1:3]), lines[1:3]
         assert all(ln["forward_ms"] > 0 for ln in lines[7:]), lines[7:]
-        assert {m for m, _ in census} == {"snake", "snake_approx",
-                                          "snake_approx_bf16"}, census
+        assert {m for m, _ in census} == {"snake", "snake_approx", "snake_approx_bf16",
+                                          "snake_approx_bf16_cl"}, census
         assert measure_launches.get("rvq", 0) > 0, measure_launches
         fast_decode_db = folded_against_live_db(model, corpus / "test" / wavs["test"][0])
         print(json.dumps({"trained_fast_decoder_vs_live_si_sdr_db": fast_decode_db,
@@ -1811,7 +1865,7 @@ def trained_phase(gen, serve_census, train_rows):
     assert len(levels) == 12, list(levels)
     assert all(b >= a for a, b in zip(kbps, kbps[1:])) and kbps[-1] > kbps[0], kbps
     assert kbps == [lv["kbps"] for lv in reports["live"]["levels"].values()]
-    assert {m for m, _ in eval_census} == {"snake", "snake_approx_bf16"}, eval_census
+    assert {m for m, _ in eval_census} == {"snake", "snake_approx_bf16_cl"}, eval_census
     assert {m for m, _ in live_census} == {"snake"}, live_census
 
     rows = {"snake_trained_train": snake_mode_row(
@@ -1822,10 +1876,11 @@ def trained_phase(gen, serve_census, train_rows):
         **census_row(bwd, bwd_census), "launches": launches["snake_backward"],
         "new_shapes": len(set(bwd_census) - set(train_rows["census"]))}
     rows.update({f"{mode}_trained_measure": snake_mode_row(census, mode, gen, serve_census)
-                 for mode in ("snake", "snake_approx", "snake_approx_bf16")})
+                 for mode in ("snake", "snake_approx", "snake_approx_bf16",
+                              "snake_approx_bf16_cl")})
     rows.update({f"{mode}_trained_eval": snake_mode_row(eval_census, mode, gen,
                                                          serve_census)
-                 for mode in ("snake", "snake_approx_bf16")})
+                 for mode in ("snake", "snake_approx_bf16_cl")})
     rows["snake_trained_eval_live"] = snake_mode_row(live_census, "snake", gen,
                                                      serve_census)
     rows["fused_rvq_trained"] = rvq_stream_row(calls, measure_launches["rvq"], gen)
@@ -2519,8 +2574,8 @@ def last_card_checks(model, gen, last, cards: int):
     shape = (rows, 96, 22050)
     with torch.inference_mode():
         for mode in SNAKE_MODES:
-            dtype = torch.bfloat16 if mode.endswith("_bf16") else torch.float32
-            x, alpha = (t.to(last) for t in kt.snake_inputs(shape, gen, dtype))
+            x, alpha = (t.to(last) for t in mode_inputs(shape, gen, mode))
+            dtype = x.dtype
             c = kt.time_snake(snake_ops, x, alpha, approx="approx" in mode, timed=False)
             tol = SNAKE_BF16_TOL if dtype == torch.bfloat16 else SNAKE_TOL
             assert c["max_abs_err"] <= tol, (mode, c)
@@ -2566,6 +2621,12 @@ def packed_snake_rows(runs, gen):
                 rows[run_name, mode] = {**census_row(checks, mode_census),
                                         "launches": run["launches"][mode]}
     return rows, len(checked)
+
+
+def k2_launches(launches) -> int:
+    """K2's forward launches in a by-kernel count, every mode."""
+    return sum(n for k, n in launches.items()
+               if k.startswith("snake") and "backward" not in k)
 
 
 def counted_memory(fn, *args):
@@ -2654,9 +2715,10 @@ def packed_phase(model, gen):
         to_f32_db[name] = si_sdr(d["audio"], decode["fast_f32"]["audio"])
         if name in ("fast", "fast_f32"):
             continue
+        # no more Snake launches than the unpacked decoder (whose bfloat16
+        # modes are the channels-last ones)
         base = runs[d["base"]]
-        for mode in {m for m, _ in runs[name]["census"]}:
-            assert runs[name]["launches"][mode] <= base["launches"].get(mode, 0), (name, mode)
+        assert k2_launches(runs[name]["launches"]) <= k2_launches(base["launches"]), name
         decode_db[name] = si_sdr(d["audio"], decode[d["base"]]["audio"])
     for name, db in decode_db.items():
         if decode[name]["base"] == "fast_f32":
@@ -2864,7 +2926,10 @@ def main() -> int:
     for name, what in (
             ("snake_trained_measure", "exact float32, the exact encoders"),
             ("snake_approx_trained_measure", "polynomial float32, the turbo encoders"),
-            ("snake_approx_bf16_trained_measure", "polynomial bfloat16, the decoders")):
+            ("snake_approx_bf16_trained_measure",
+             "polynomial bfloat16, the packed decoders"),
+            ("snake_approx_bf16_cl_trained_measure",
+             "polynomial bfloat16 channels-last, the unpacked decoders")):
         row = trained_rows[name]
         kernels.append(kernel_row(
             name, row, **source,
@@ -2874,8 +2939,8 @@ def main() -> int:
                 f"{row['launches']} launches over {row['shapes']} shapes "
                 f"({row['new_shapes']} not in the serve census)"))
     for name, what in (("snake_trained_eval", "exact float32 (the batch-1 encoder)"),
-                       ("snake_approx_bf16_trained_eval",
-                        "polynomial bfloat16 (the batch-12 level decode)")):
+                       ("snake_approx_bf16_cl_trained_eval",
+                        "polynomial bfloat16 channels-last (the batch-12 level decode)")):
         row = trained_rows[name]
         kernels.append(kernel_row(
             name, row, **source,
@@ -2958,7 +3023,7 @@ def main() -> int:
                        f"1 and 2: {eval_rows['eval']['launches']} launches over "
                        f"{eval_rows['eval']['shapes']} shapes "
                        f"({eval_rows['eval']['new_shapes']} not in the serve census)"),
-        kernel_row("snake_approx_bf16_eval", eval_fast, **source,
+        kernel_row("snake_approx_bf16_cl_eval", eval_fast, **source,
                    per=f"polynomial bfloat16 (the fast decoder), cli.evaluate --fast 1 "
                        f"of the same {clips}: {eval_fast['launches']} launches over "
                        f"{eval_fast['shapes']} shapes; its {eval_fast['exact_launches']} exact "

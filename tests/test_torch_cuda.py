@@ -9,6 +9,13 @@ fused RVQ codes identical off near-ties (top-2 margin > 1e-5) and z_q within
 1e-4 on the frames whose codes agree; exact ties between equal codebook rows
 go to the lower index.
 
+K2's channels-last mode (the bfloat16 decoder's layout) at every Snake
+shape of the fast decoder at 16 x 10 s and at odd channel counts, ragged
+vectors and offsets, bit-identical to the plain version; the convs that
+decoder hands cuDNN in another form (``nn/layers.conv_last``: phases,
+widened) within one bfloat16 rounding of the plain conv; the fast decoder
+on the card taking that path, within 50 dB of its (B, C, T) computation.
+
 Besides the flagship's shapes, the edges of the two designs: Snake rows
 whose T % 4 (T % 8 in bfloat16) leaves a scalar head and tail, a base
 pointer off 16 bytes (a contiguous view with a storage offset), several rows,
@@ -51,10 +58,12 @@ the bits of the straight run.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import vrvq_tpu_torch as port
 from vrvq_tpu_torch.kernels import LAUNCHES
 from vrvq_tpu_torch.ops import rvq_kernel, snake
+from layout_twin import ncl_twin
 
 pytestmark = pytest.mark.cuda
 
@@ -118,13 +127,133 @@ def test_snake_kernel_edges(cuda, shape, offset, mode):
 
 
 def test_snake_kernel_rejects_what_it_does_not_take(cuda):
-    x = torch.randn(1, 4, 16, device=cuda)
+    """Types and layouts no kernel takes raise. A transposed contiguous
+    tensor is the channels-last layout, which its own kernel takes."""
+    x = torch.randn(2, 4, 16, device=cuda)
     with pytest.raises(TypeError):
         snake.snake(x.double(), torch.ones(4, device=cuda, dtype=torch.float64))
     with pytest.raises(TypeError):
         snake.snake(x.half(), torch.ones(4, device=cuda), approx=True)
-    with pytest.raises(ValueError):
-        snake.snake(x.transpose(1, 2), torch.ones(16, device=cuda))
+    last = x.transpose(1, 2).contiguous().transpose(1, 2)
+    for other in (x[..., ::2], last[..., 1:-1], x.transpose(0, 1)):
+        with pytest.raises(ValueError, match="contiguous or channels-last"):
+            snake.snake(other, torch.ones(other.shape[1], device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        snake.snake_backward(last, torch.ones(4, device=cuda), torch.ones_like(last))
+    before = LAUNCHES["snake_cl"]
+    _assert_snake_matches_plain(x.transpose(1, 2), torch.ones(16, device=cuda), False)
+    assert LAUNCHES["snake_cl"] == before + 1
+
+
+# the fast profile's bfloat16 decoder at 16 x 10 s: its Snakes' shapes
+FAST_DECODER_CENSUS = [(16, 1536, 862), (16, 768, 6896), (16, 384, 55168),
+                       (16, 192, 220672), (16, 96, 441344)]
+
+
+def _channels_last_buffer(shape, offset, dtype, device, gen):
+    """(B, C, T) values in channels-last memory, ``offset`` elements into
+    their buffer."""
+    b, c, t = shape
+    buf = (4.0 * torch.randn(b * t * c + offset, generator=gen)).to(device, dtype)
+    x = buf[offset:].view(b, t, c).transpose(1, 2)
+    assert x.storage_offset() == offset
+    return x
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("shape,offset", [(s, 0) for s in FAST_DECODER_CENSUS] + [
+    ((2, 7, 1001), 0), ((3, 13, 257), 1), ((3, 13, 257), 3), ((4, 96, 33), 8),
+    ((4, 96, 33), 5), ((2, 12, 100), 4), ((1, 6, 4099), 0), ((2, 6200, 9), 0),
+    ((2, 6200, 9), 1), ((5, 3, 2), 0),
+], ids=[f"census{i}" for i in range(5)] + [
+    "C7", "C13-offset1", "C13-offset3", "C96-offset8", "C96-offset5",
+    "C12-offset4", "C6", "C6200", "C6200-offset1", "tiny"])
+def test_snake_channels_last_matches_plain(cuda, shape, offset, mode):
+    """K2's channels-last mode against the plain version (bit-identical in
+    bfloat16) at every Snake shape of the fast decoder at 16 x 10 s, and at
+    the edges of its design: channel counts off the 16-byte vector (odd, 12
+    in bfloat16), a base off 16 bytes (and off y's alignment), more
+    channels than its shared-memory table holds. The output keeps the
+    layout, and the mode counts its own launches."""
+    dtype, approx = MODES[mode]
+    gen = torch.Generator().manual_seed(sum(shape) + offset)
+    x = _channels_last_buffer(shape, offset, dtype, cuda, gen)
+    assert snake.is_channels_last(x)
+    alpha = (0.1 + 2.0 * torch.rand(shape[1], generator=gen)).to(cuda)
+    name = snake.mode_name(dtype, approx, True)
+    before = LAUNCHES[name]
+    with torch.inference_mode():
+        y = snake.snake(x, alpha, approx)
+        assert y.stride() == x.stride()
+        _assert_snake_matches_plain(x, alpha, approx)
+    assert LAUNCHES[name] == before + 2
+
+
+# the convs of the fast decoder at 16 x 10 s that cuDNN gets in another form
+# (input, kernel, dilation, padding): its dilation-9 convs and the out conv
+CONV_RESHAPED = [((16, 768, 6896), (768, 768, 7), 9, 27),
+                 ((16, 384, 55168), (384, 384, 7), 9, 27),
+                 ((16, 192, 220672), (192, 192, 7), 9, 27),
+                 ((16, 96, 441344), (96, 96, 7), 9, 27),
+                 ((16, 96, 441344), (1, 96, 7), 1, 3)]
+
+
+@pytest.mark.parametrize("x_shape,w_shape,dilation,padding", CONV_RESHAPED + [
+    ((2, 768, 80), (768, 768, 7), 9, 0), ((2, 16, 100), (5, 16, 7), 11, 0),
+    ((3, 48, 300), (20, 48, 3), 5, 5), ((1, 96, 1000), (1, 96, 7), 1, 3),
+    ((2, 32, 129), (130, 32, 7), 4, 12), ((2, 64, 900), (64, 64, 7), 9, 27)],
+    ids=[f"decoder{i}" for i in range(5)] + [
+        "padless", "C16-dil11", "C48-k3", "out-T1000", "N130", "T-multiple"])
+def test_channels_last_conv_matches_plain(cuda, x_shape, w_shape, dilation, padding):
+    """``nn/layers.conv_last`` against the plain conv (float32 sums rounded
+    to bfloat16 once) at every shape of the fast decoder that cuDNN gets in
+    another form (``conv_form``: phases, widened) and at edges (no padding,
+    widths off 16, few frames, frames that the dilation divides): each
+    output within one bfloat16 rounding of the plain one (the float32 sums
+    run in another order), in channels-last memory."""
+    from vrvq_tpu_torch.nn.layers import conv_last, to_channels_last
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(x_shape) + dilation)
+    x = to_channels_last(torch.randn(x_shape, generator=gen, device=cuda).bfloat16())
+    w = to_channels_last((0.05 * torch.randn(w_shape, generator=gen, device=cuda)).bfloat16())
+    with torch.inference_mode():
+        got = conv_last(x, w, 1, padding, dilation)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            want = F.conv1d(x.float(), w.float(), None, 1, padding,
+                            dilation).bfloat16()
+    assert got.shape == want.shape and got.stride(1) == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5 * want.float().abs().max().item())
+
+
+def test_fast_decoder_runs_channels_last_on_the_card(cuda):
+    """The fast profile's decoder on the card: the channels-last path (its
+    counter, K2's channels-last mode, no (B, C, T) Snake), within 50 dB of
+    the same parameters computed in (B, C, T) (where it reads about 55: the
+    convs' sums run in another order); the float32 codec launches no
+    channels-last kernel."""
+    from vrvq_tpu_torch.infer import fast
+    from vrvq_tpu_torch.utils import counter
+
+    model = port.build_model(port.small_config(), device=cuda, seed=0)
+    m = fast.make_inference_model(model)
+    twin = ncl_twin(m)
+    x = torch.from_numpy(port.synthetic_clip(1.0, 44100, 7)[..., :44032]).to(cuda)
+    with torch.inference_mode():
+        codes, mask = fast.encode_codes(m, x, 1.0)
+        LAUNCHES.clear()
+        counter("decoder").clear()
+        got = m.decode_from_codes(codes.long(), mask)
+        torch.cuda.synchronize()
+        assert dict(counter("decoder")) == {"channels_last": 1}
+        assert LAUNCHES["snake_approx_bf16_cl"] > 0 and LAUNCHES["snake_approx_bf16"] == 0
+        want = twin.decode_from_codes(codes.long(), mask)
+        LAUNCHES.clear()
+        model(x, level=1.0)
+        torch.cuda.synchronize()
+    assert not any(k.endswith("_cl") for k in LAUNCHES), dict(LAUNCHES)
+    err = ((got - want).double() ** 2).sum() / (want.double() ** 2).sum()
+    assert 10 * torch.log10(err).item() <= -50.0
 
 
 @pytest.mark.parametrize("d,frames,masked", [(8, 37, True), (8, 300, False),
@@ -694,7 +823,7 @@ def test_eval_clis_default_to_the_card(cuda, tmp_path, monkeypatch):
                             "--out", str(tmp_path / "eval.json")])
     torch.cuda.synchronize()
     assert devices == [torch.device("cuda", 0)]
-    assert LAUNCHES["snake_approx_bf16"] > 0 and LAUNCHES["snake"] > 0, dict(LAUNCHES)
+    assert LAUNCHES["snake_approx_bf16_cl"] > 0 and LAUNCHES["snake"] > 0, dict(LAUNCHES)
     assert report["num_examples"] == 1 and "tone" in report["per_class_top_level"]
 
     LAUNCHES.clear()
@@ -782,7 +911,9 @@ def test_packed_profile_defaults_to_the_card(cuda):
     """The turbo + packed-encoder profile and a packed fast decoder of a
     codec built with no device: every parameter and buffer on the
     card, the one-shot codec through K1 and K2 there, the packed decode
-    within 60 dB of the unpacked fast decoder's."""
+    within 60 dB of the unpacked fast decoder's in (B, C, T), the layout
+    the packing rearranges (the fast decoder itself runs channels-last,
+    other kernels that round elsewhere)."""
     from vrvq_tpu_torch.infer import fast
 
     model = port.build_model(port.small_config())
@@ -793,7 +924,8 @@ def test_packed_profile_defaults_to_the_card(cuda):
     with torch.inference_mode():
         codes, mask = fast.encode_codes(sm, x, 1.0)
         audio = sm.decode_from_codes(codes.long(), mask)
-        ref = fast.make_inference_model(model).decode_from_codes(codes.long(), mask)
+        ref = ncl_twin(fast.make_inference_model(model)).decode_from_codes(
+            codes.long(), mask)
     torch.cuda.synchronize()
     assert LAUNCHES["rvq"] == 1 and LAUNCHES["snake_approx"] > 0, dict(LAUNCHES)
     assert LAUNCHES["snake_approx_bf16"] > 0, dict(LAUNCHES)

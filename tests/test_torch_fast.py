@@ -26,6 +26,7 @@ Tolerances:
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -38,10 +39,13 @@ from vrvq_tpu.infer import fast as jfast
 from vrvq_tpu.models import DAC_VRVQ as JaxDAC
 from vrvq_tpu.ops.snake import snake_approx as jax_snake_approx
 import vrvq_tpu_torch as port
+from vrvq_tpu_torch import kernel_times
 from vrvq_tpu_torch.convert import state_dict_from_jax
 from vrvq_tpu_torch.infer import fast
 from vrvq_tpu_torch.models.dac_vrvq import DAC_VRVQ, Profile
 from vrvq_tpu_torch.ops import rvq_kernel, snake
+from vrvq_tpu_torch.utils import counter
+from layout_twin import ncl_twin
 from tests.test_torch_support import jax_model_and_params, jnp_tree
 
 SIZES = dict(encoder_dim=8, codebook_size=32)
@@ -192,6 +196,97 @@ def test_snake_approx_decode_quality(tiny):
         a, b = exact(x, level=1.0), approx(x, level=1.0)
     assert torch.equal(a["codes"], b["codes"])
     assert _snr(a["audio"], b["audio"]) > 60.0
+
+
+def _layout_calls():
+    return dict(counter("decoder"))
+
+
+def test_bf16_decoder_runs_channels_last(tiny):
+    """The fast profile's unpacked bfloat16 decoder takes the channels-last
+    path (the layout counter) and decodes within the bfloat16 bar of the
+    folded float32 decoder (``test_bf16_decoder_quality``'s 35 dB)."""
+    fast_m = fast.make_inference_model(tiny)
+    f32 = fast.make_inference_model(tiny, decode_dtype=None, snake_approx=False)
+    assert fast_m.decoder.channels_last and not f32.decoder.channels_last
+    x = torch.from_numpy(_audio(3))
+    with torch.inference_mode():
+        z = f32.encode(x)["z_q"]
+        counter("decoder").clear()
+        a = f32.decode(z)
+        assert _layout_calls() == {"ncl": 1}
+        with kernel_times.snake_census(fast_m, by_mode=True) as census:
+            b = fast_m.decode(z)
+    assert _layout_calls() == {"ncl": 1, "channels_last": 1}
+    assert {m for m, _ in census} == {"snake_approx_bf16_cl"}
+    assert b.dtype == torch.float32 and b.shape == a.shape
+    assert _snr(a, b) > 35.0
+
+
+@pytest.mark.parametrize("profile", [
+    dict(decode_dtype=None),
+    dict(decode_packed=1),
+    dict(decode_packed_up=2),
+    dict(encode_dtype=torch.bfloat16, decode_dtype=torch.float32),
+    dict(encode_snake_approx=True, fold_encoder=True, decode_dtype=None),
+], ids=["f32", "packed", "packed_up", "bf16_encoder", "folded_turbo_encoder"])
+def test_other_stacks_keep_ncl(tiny, profile):
+    """Float32 decoders, the time-packed bfloat16 decoders and every
+    encoder keep (B, C, T): no conv of theirs is channels-last, no Snake
+    runs in that layout and the layout counter stays at zero."""
+    m = fast.make_inference_model(tiny, **profile)
+    for stack in (m, tiny):
+        assert not any(getattr(mod, "channels_last", False) for mod in stack.modules())
+    counter("decoder").clear()
+    with torch.inference_mode(), kernel_times.snake_census(m, by_mode=True) as census:
+        m(torch.from_numpy(_audio(4)), level=1.0)
+    assert _layout_calls() == {"ncl": 1}
+    assert not any(mode.endswith("_cl") for mode, _ in census)
+
+
+def test_fast_profile_state_dict_unchanged(tiny):
+    """The channels-last decoder stores its folded kernels in another memory
+    format only: the state dict's keys, shapes and dtypes are the fold's,
+    its values equal, and it loads back into the profile, by copy and by
+    assignment, and through a save."""
+    m = fast.make_inference_model(tiny)
+    folded = fast._folded(tiny.state_dict(), "decoder.", torch.bfloat16)
+    sd = m.state_dict()
+    assert list(sd) == list(folded)
+    for key, value in sd.items():
+        assert (value.shape, value.dtype) == (folded[key].shape, folded[key].dtype), key
+        assert torch.equal(value, folded[key]), key
+    assert not sd["decoder.in_conv.w"].is_contiguous()  # stored channels-last
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    loaded = torch.load(io.BytesIO(buf.getvalue()))
+    again = m.with_state(loaded)
+    fresh = DAC_VRVQ(m.config, profile=m.profile)
+    fresh.load_state_dict(folded)
+    x = torch.from_numpy(_audio(6))
+    with torch.inference_mode():
+        ref = m(x, level=1.0)["audio"]
+        for other in (again, fresh):
+            assert other.decoder.in_conv.w.transpose(1, 2).is_contiguous()
+            assert torch.equal(other(x, level=1.0)["audio"], ref)
+
+
+@pytest.mark.parametrize("padding", [True, False], ids=["padded", "padless"])
+def test_channels_last_decodes_as_ncl(tiny, padding):
+    """A clone of the fast model (padding-free too: its crops are views of
+    the channels-last tensors) decodes as the (B, C, T) computation of the
+    same parameters, within the bfloat16 bar; the clone shares the
+    parameters, already channels-last, with no copy."""
+    m = fast.make_inference_model(tiny)
+    clone = m.clone(padding=padding)
+    assert clone.decoder.block_1.up.w.data_ptr() == m.decoder.block_1.up.w.data_ptr()
+    twin = ncl_twin(clone)
+    z = torch.randn(2, m.config.resolved_latent_dim, 40,
+                    generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        got, want = clone.decode(z), twin.decode(z)
+    assert got.shape == want.shape
+    assert _snr(want, got) > 35.0
 
 
 def test_serving_model_is_turbo_profile(pair):

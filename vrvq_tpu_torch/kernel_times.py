@@ -93,9 +93,10 @@ def snake_census(*models, by_mode: bool = False):
     """While open, counts the input shapes of every ``Snake1d`` call in
     ``models``, or with no models in whichever model runs (a CLI that builds
     its own): yields a Counter of shape -> calls, or with ``by_mode`` of
-    (mode, shape) -> calls, the mode named as ``ops.snake.mode_name``."""
+    (mode, shape) -> calls, the mode named as ``ops.snake.mode_name`` (its
+    layout read from the input's strides)."""
     from .nn.layers import Snake1d
-    from .ops.snake import mode_name
+    from .ops.snake import is_channels_last, mode_name
 
     census = collections.Counter()
 
@@ -104,7 +105,8 @@ def snake_census(*models, by_mode: bool = False):
             return
         shape = tuple(args[0].shape)
         if by_mode:
-            census[mode_name(args[0].dtype, module.approx), shape] += 1
+            x = args[0]
+            census[mode_name(x.dtype, module.approx, is_channels_last(x)), shape] += 1
         else:
             census[shape] += 1
 
@@ -162,12 +164,15 @@ def device_ms(fn, args=()) -> float:
     return (statistics.median(replays[1]) - statistics.median(replays[0])) / CALLS
 
 
-def snake_inputs(shape, gen, dtype=torch.float32):
-    """x (3 N(0, 1), in ``dtype``) and alpha (0.5 + U(0, 1), float32) on the
-    card, from ``gen``."""
+def snake_inputs(shape, gen, dtype=torch.float32, channels_last: bool = False):
+    """x (3 N(0, 1), in ``dtype``; in channels-last memory with
+    ``channels_last``) and alpha (0.5 + U(0, 1), float32) on the card, from
+    ``gen``."""
+    from .nn.layers import to_channels_last
+
     x = (3.0 * torch.randn(shape, generator=gen)).to(DEVICE, dtype)
     alpha = (0.5 + torch.rand(shape[1], generator=gen)).to(DEVICE)
-    return x, alpha
+    return (to_channels_last(x) if channels_last else x), alpha
 
 
 def snake_fns(snake_mod, approx: bool = False):

@@ -44,6 +44,11 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, _P],
         ctypes.c_int,
     ),
+    "vrvq_snake_forward_cl": (
+        [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, _P],
+        ctypes.c_int,
+    ),
     "vrvq_snake_backward": (
         [_P] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int, _P],
         ctypes.c_int,

@@ -242,6 +242,190 @@ extern "C" int vrvq_snake_forward(const void* x, const float* alpha, void* y,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ channels-last
+//
+// The same four modes over channels-last memory, (B, T, C) with C innermost,
+// the layout of the bfloat16 decoder's activations (nn/layers.py), where
+// every conv runs as an NHWC implicit GEMM on the tensor cores. Element e of
+// the flat buffer belongs to channel e % C, so alpha changes along the
+// innermost axis instead of once a row.
+//
+// Design. The tensor is one flat run of n elements in tiles of kMaxThreads *
+// kVec 16-byte vectors, as in the row kernel: every thread issues its kVec
+// loads before it computes any. A block first writes alpha and the IEEE
+// reciprocal 1 / (alpha + 1e-9) of every channel into shared memory (8 bytes
+// a channel), then walks tiles grid-stride, so the C divisions are paid once
+// a block and not once an element. Where C is a multiple of the vector's
+// elements and x starts 16-byte aligned (every activation of the decoder:
+// its widths are multiples of 8, its tensors fresh allocations), a vector
+// holds E consecutive channels of one row, and its alphas and reciprocals
+// are read from the table as 16-byte vectors too. Otherwise (an odd C, a view
+// with an offset) each element looks its channel up on its own, with a
+// scalar head and tail peeled as in the row kernel, or scalar accesses where
+// x and y are misaligned against each other. Above kClTableChannels channels
+// the table would not fit the default shared memory and each element reads
+// alpha and divides itself. Same arithmetic as the row kernel (snake1), so
+// the result is bit-identical to the plain versions.
+
+namespace {
+
+constexpr unsigned kClTableChannels = 6144;  // 48 KB of alpha and reciprocals
+constexpr unsigned kClMaxBlocks = 2048;
+
+// alpha of channel c and its reciprocal, from the shared table or computed.
+__device__ __forceinline__ float cl_alpha(const float* table, const float* alpha,
+                                          bool cached, unsigned channels,
+                                          unsigned c, float& inv) {
+  if (cached) {
+    inv = table[channels + c];
+    return table[c];
+  }
+  const float a = __ldg(alpha + c);
+  inv = 1.0f / (a + 1e-9f);
+  return a;
+}
+
+template <typename T, bool POLY>
+__global__ void __launch_bounds__(kMaxThreads)
+snake_cl_kernel(const T* __restrict__ x, const float* __restrict__ alpha,
+                T* __restrict__ y, unsigned channels, long long n,
+                long long tiles) {
+  constexpr int E = Vec16<T>::E;
+  extern __shared__ float4 table4[];  // alpha (C), then the reciprocals (C)
+  float* table = reinterpret_cast<float*>(table4);
+  const bool cached = channels <= kClTableChannels;
+  if (cached) {
+    for (unsigned c = threadIdx.x; c < channels; c += blockDim.x) {
+      const float a = __ldg(alpha + c);
+      table[c] = a;
+      table[channels + c] = 1.0f / (a + 1e-9f);
+    }
+    __syncthreads();
+  }
+  const int nt = blockDim.x;
+  const int t = threadIdx.x;
+  const bool vector = ((reinterpret_cast<uintptr_t>(x) ^
+                        reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const long long head =
+      vector ? min((long long)(((16 - (reinterpret_cast<uintptr_t>(x) & 15)) & 15) /
+                               sizeof(T)),
+                   n)
+             : 0;
+  // whole vectors of E channels read their table entries as vectors
+  const bool grouped = cached && head == 0 && channels % E == 0;
+  const long long nvec = vector ? (n - head) / E : 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  uint4* yv = reinterpret_cast<uint4*>(y + head);
+  // a thread's next vector lies nt * E elements further on
+  const unsigned step = (unsigned)(((long long)nt * E) % channels);
+
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (vector) {
+      const long long v0 = tile * nt * kVec + t;
+      uint4 buf[kVec];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const long long v = v0 + (long long)i * nt;
+        if (v < nvec) buf[i] = xv[v];
+      }
+      const bool edge = tile == 0 && t < E;
+      const long long tail = head + E * nvec + t;
+      const float hv = edge && t < head ? widen(x[t]) : 0.0f;
+      const float tv = edge && tail < n ? widen(x[tail]) : 0.0f;
+      unsigned c = (unsigned)((head + v0 * E) % channels);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const long long v = v0 + (long long)i * nt;
+        if (v < nvec) {
+          float f[E];
+          Vec16<T>::widen_all(buf[i], f);
+          if (grouped) {
+            float a[E], inv[E];
+#pragma unroll
+            for (int j = 0; j < E; j += 4) {
+              *reinterpret_cast<float4*>(a + j) = table4[(c + j) / 4];
+              *reinterpret_cast<float4*>(inv + j) = table4[(channels + c + j) / 4];
+            }
+#pragma unroll
+            for (int j = 0; j < E; ++j) f[j] = snake1<POLY>(f[j], a[j], inv[j]);
+          } else {
+            unsigned cj = c;
+#pragma unroll
+            for (int j = 0; j < E; ++j) {
+              float inv;
+              const float a = cl_alpha(table, alpha, cached, channels, cj, inv);
+              f[j] = snake1<POLY>(f[j], a, inv);
+              if (++cj == channels) cj = 0;
+            }
+          }
+          yv[v] = Vec16<T>::narrow_all(f);
+        }
+        c += step;
+        if (c >= channels) c -= channels;
+      }
+      if (edge && t < head) {
+        float inv;
+        const float a = cl_alpha(table, alpha, cached, channels,
+                                 (unsigned)(t % channels), inv);
+        y[t] = narrow<T>(snake1<POLY>(hv, a, inv));
+      }
+      if (edge && tail < n) {
+        float inv;
+        const float a = cl_alpha(table, alpha, cached, channels,
+                                 (unsigned)(tail % channels), inv);
+        y[tail] = narrow<T>(snake1<POLY>(tv, a, inv));
+      }
+    } else {
+      const long long e0 = tile * nt * kVec * E;
+      for (int i = t; i < nt * kVec * E; i += nt) {
+        const long long e = e0 + i;
+        if (e < n) {
+          float inv;
+          const float a = cl_alpha(table, alpha, cached, channels,
+                                   (unsigned)(e % channels), inv);
+          y[e] = narrow<T>(snake1<POLY>(widen(x[e]), a, inv));
+        }
+      }
+    }
+  }
+}
+
+template <typename T, bool POLY>
+int launch_cl(const void* x, const float* alpha, void* y, long long n,
+              long long channels, cudaStream_t stream) {
+  constexpr int E = Vec16<T>::E;
+  const long long per_tile = (long long)kMaxThreads * kVec * E;
+  const long long tiles = (n + per_tile - 1) / per_tile;
+  const unsigned grid = tiles < kClMaxBlocks ? (unsigned)tiles : kClMaxBlocks;
+  const size_t smem =
+      channels <= kClTableChannels ? 2 * sizeof(float) * (size_t)channels : 0;
+  snake_cl_kernel<T, POLY><<<grid, kMaxThreads, smem, stream>>>(
+      static_cast<const T*>(x), alpha, static_cast<T*>(y), (unsigned)channels,
+      n, tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, y: n elements of `dtype` (0 float32, 1 bfloat16) in channels-last order,
+// channel innermost (element e is channel e % channels; x may start anywhere
+// an element may); alpha: (channels,) float32. poly: 1 for the polynomial
+// sin^2. Returns the cudaError_t of the launch (0 on success).
+extern "C" int vrvq_snake_forward_cl(const void* x, const float* alpha, void* y,
+                                     long long n, long long channels, int dtype,
+                                     int poly, void* stream) {
+  if (n <= 0) return 0;
+  if (channels <= 0 || channels > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return poly ? launch_cl<float, true>(x, alpha, y, n, channels, s)
+                : launch_cl<float, false>(x, alpha, y, n, channels, s);
+  if (dtype == 1)
+    return poly ? launch_cl<__nv_bfloat16, true>(x, alpha, y, n, channels, s)
+                : launch_cl<__nv_bfloat16, false>(x, alpha, y, n, channels, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- backward
 //
 // The gradient of the two float32 modes, for training. The JAX package has

@@ -34,7 +34,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..nn.layers import (DecoderBlock, EncoderBlock, Snake1d, WNConv1d,
-                         pack_time, unpack_time)
+                         pack_time, to_channels_last, unpack_time)
+from ..utils import count
 from . import codec
 from .quantize import ResidualVectorQuantize, VBRResidualVectorQuantize
 
@@ -121,7 +122,14 @@ class Decoder(nn.Module):
     ``dtype`` the stack computes in. ``packed_blocks``: the last blocks and
     the tail run packed (the packing grows by each block's stride), and the
     output is unpacked after the out conv; ``packed_up_blocks``: only the
-    last blocks' transposed convs run packed, each unpacked at once."""
+    last blocks' transposed convs run packed, each unpacked at once.
+
+    Unpacked in bfloat16 (the fast profile's decoder) the stack runs
+    channels-last (``nn/layers.py``): one copy turns the latents into that
+    layout and dtype, every conv is an NHWC conv on the tensor cores, and
+    the one-channel output is the same memory in either layout. Float32 and
+    packed decoders keep (B, C, T). Each call counts its layout
+    (``decoder.channels_last`` or ``decoder.ncl``)."""
 
     def __init__(self, input_channel: int, channels: int, rates: Sequence[int],
                  d_out: int = 1, padding: bool = True, folded: bool = False,
@@ -136,8 +144,11 @@ class Decoder(nn.Module):
             raise ValueError("packed decoder requires padding=True")
         pad_mode = "zeros" if padding else "none"
         self.dtype = dtype
+        last = self.channels_last = (dtype == torch.bfloat16 and not packed_blocks
+                                     and not packed_up_blocks)
         self.in_conv = WNConv1d(input_channel, channels, 7, padding=3,
-                                pad_mode=pad_mode, folded=folded, dtype=dtype)
+                                pad_mode=pad_mode, folded=folded, dtype=dtype,
+                                channels_last=last)
         self.n_blocks = len(rates)
         output_dim = channels
         pack = 1
@@ -148,17 +159,25 @@ class Decoder(nn.Module):
             self.add_module(f"block_{i}", DecoderBlock(
                 input_dim, output_dim, stride, padding, folded, snake_approx,
                 dtype, packed=packed, time_pack_in=pack,
-                packed_up_only=i >= self.n_blocks - packed_up_blocks))
+                packed_up_only=i >= self.n_blocks - packed_up_blocks,
+                channels_last=last))
             if packed:
                 pack *= stride
         self.pack = pack
         self.snake = Snake1d(output_dim, snake_approx, pack)
         self.out_conv = WNConv1d(output_dim, d_out, 7, padding=3,
                                  pad_mode=pad_mode, folded=folded, dtype=dtype,
-                                 time_pack_in=pack, time_pack_out=pack)
+                                 time_pack_in=pack, time_pack_out=pack,
+                                 channels_last=last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.in_conv(x.to(self.dtype))
+        if self.channels_last:
+            count("decoder.channels_last")
+            x = to_channels_last(x, self.dtype)
+        else:
+            count("decoder.ncl")
+            x = x.to(self.dtype)
+        x = self.in_conv(x)
         for i in range(self.n_blocks):
             x = getattr(self, f"block_{i}")(x)
         x = self.out_conv(self.snake(x))

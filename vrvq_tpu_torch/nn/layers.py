@@ -28,12 +28,27 @@ and a packed Snake's alpha are tiled ``P`` times. The parameters and
 state-dict keys stay those of the unpacked module: every module, live or
 folded, derives its packed tensors at each call (a live one's then carry
 the gradient), so they cannot go stale.
+
+Channels-last (``channels_last=True``, folded unpacked convs; the bfloat16
+decoder, ``models/dac_vrvq.py``): activations keep the shape ``(B, C, T)``
+over ``(B, T, C)`` memory (``to_channels_last``), and each conv runs as a
+2-D conv over the ``(B, C, 1, T)`` view, PyTorch's ``channels_last``
+format, so cuDNN takes NHWC tensor-core kernels with no transpose. The
+folded kernel ``w`` keeps its shape, dtype and key, stored with the strides
+of that format from the time the module is built or loaded, so no call
+converts it. Snakes, bias adds, residual adds and crops work on the views as
+they are, in either layout. cuDNN serves two kinds of NHWC conv without
+tensor cores, a conv dilated past 3 and a conv to fewer than 16 channels;
+``conv_last`` hands it those in a form it serves with them (``conv_form``):
+the dilated conv undilated over its frames' interleaved phases, the narrow
+one with its kernel widened by zero rows.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -163,6 +178,88 @@ def _conv_padded(x: torch.Tensor, kernel: torch.Tensor, lo: int, hi: int):
     return F.conv1d(F.pad(x, (lo, hi)), kernel)
 
 
+def to_channels_last(x: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x (B, C, T)`` in channels-last memory (``(B, T, C)`` contiguous,
+    transposed), cast to ``dtype``: one copy, or none where ``x`` already
+    lies so in ``dtype``."""
+    dtype = x.dtype if dtype is None else dtype
+    if x.dtype == dtype and x.transpose(1, 2).is_contiguous():
+        return x
+    b, c, t = x.shape
+    return x.new_empty((b, t, c), dtype=dtype).transpose(1, 2).copy_(x)
+
+
+# cuDNN's NHWC tensor-core kernels take dilations up to this, and convs to at
+# least this many channels; a narrower conv is widened to WIDE_OUT_CHANNELS,
+# where cuDNN picks a faster kernel than at 16 (the decoder's conv census,
+# PERF.md §5)
+CUDNN_MAX_DILATION = 3
+CUDNN_MIN_OUT_CHANNELS = 16
+WIDE_OUT_CHANNELS = 32
+
+
+def conv_form(out_channels: int, stride: int = 1, padding: int = 0,
+              dilation: int = 1, groups: int = 1) -> str:
+    """How ``conv_last`` hands a (not transposed) conv to cuDNN: ``"wide"``,
+    its kernel widened to ``WIDE_OUT_CHANNELS`` by zero rows (fewer than
+    ``CUDNN_MIN_OUT_CHANNELS`` outputs, no groups); ``"phases"``, undilated
+    over the frames' phases (dilated past ``CUDNN_MAX_DILATION``, stride 1,
+    no groups, the padding a multiple of the dilation); else ``"nhwc"``, as
+    it is."""
+    if out_channels < CUDNN_MIN_OUT_CHANNELS and groups == 1:
+        return "wide"
+    if (dilation > CUDNN_MAX_DILATION and stride == 1 and groups == 1
+            and padding % dilation == 0):
+        return "phases"
+    return "nhwc"
+
+
+def conv_last(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              padding: int = 0, dilation: int = 1, groups: int = 1,
+              transposed: bool = False) -> torch.Tensor:
+    """The conv, without bias, of ``x (B, C_in, T)`` in channels-last memory
+    with a kernel ``w`` stored channels-last (``(C_out, C_in / groups, K)``,
+    or ``(C_in, C_out, K)`` ``transposed``), as 2-D convs over NHWC views,
+    in the form ``conv_form`` names; ``y (B, C_out, T_out)`` channels-last
+    (a view where the form crops it)."""
+    if transposed:
+        return F.conv_transpose2d(x.unsqueeze(2), w.unsqueeze(2), None,
+                                  (1, stride), (0, padding)).squeeze(2)
+    form = conv_form(w.shape[0], stride, padding, dilation, groups)
+    if form == "wide":
+        cout, cin, k = w.shape
+        wide = w.new_zeros((WIDE_OUT_CHANNELS, k, cin))
+        wide[:cout] = w.transpose(1, 2)
+        return conv_last(x, wide.transpose(1, 2), stride, padding,
+                         dilation)[:, :cout]
+    if form == "phases":
+        return _conv_phases(x, w, padding, dilation)
+    return F.conv2d(x.unsqueeze(2), w.unsqueeze(2), None, (1, stride),
+                    (0, padding), (1, dilation), groups).squeeze(2)
+
+
+def _conv_phases(x: torch.Tensor, w: torch.Tensor, padding: int,
+                 d: int) -> torch.Tensor:
+    """A stride-1 conv dilated by ``d`` as an undilated one. Output frame
+    ``d s + r`` sums the taps at frames ``d (s + j - padding / d) + r``, so
+    each phase ``r`` is an undilated conv along ``s`` padded by ``padding /
+    d``. Over (B, T, C) memory the phases are the last axis of the NHWC
+    view (B, C, S, d), ``S = ceil(T / d)``: no copy where ``d`` divides T,
+    else one, with the zero frames that fill T to ``S d``."""
+    b, c, t = x.shape
+    s = -(-t // d)
+    rows = x.transpose(1, 2)
+    if s * d != t:
+        rows = torch.cat([rows, rows.new_zeros((b, s * d - t, c))], 1)
+    # the kernel as (C_out, C_in, K, 1) with channels-last strides
+    kernel = w.transpose(1, 2).unsqueeze(2).permute(0, 3, 1, 2)
+    y = F.conv2d(rows.reshape(b, s, d, c).permute(0, 3, 1, 2), kernel, None, 1,
+                 (padding // d, 0))
+    t_out = t + 2 * padding - d * (w.shape[2] - 1)
+    return y.permute(0, 2, 3, 1).reshape(b, -1, w.shape[0])[:, :t_out].transpose(1, 2)
+
+
 def _conv_params(module: nn.Module, v_shape, bias_channels: int,
                  folded: bool, dtype: torch.dtype) -> None:
     """Live: ``v`` and ``g`` (float32, ``g`` along ``v``'s first axis).
@@ -185,11 +282,32 @@ class _PackedConv(nn.Module):
     bias (derived at every call from the parameters, at
     ``_pack_geometry``) applied as a stride-1 conv."""
 
-    def _init_pack(self, time_pack_in: int, time_pack_out: int) -> None:
+    def _init_pack(self, time_pack_in: int, time_pack_out: int,
+                   channels_last: bool) -> None:
         self.time_pack_in, self.time_pack_out = time_pack_in, time_pack_out
         self.packed = (time_pack_in, time_pack_out) != (1, 1)
         if self.packed:
             _pack_map(*self._pack_geometry())  # raises on a packing JAX refuses
+        if channels_last and (self.packed or not self.folded):
+            raise ValueError("a channels-last conv is folded and unpacked")
+        self.channels_last = channels_last
+        if channels_last:
+            self.w = nn.Parameter(to_channels_last(self.w.data))
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        # a state loaded by assignment brings its own tensor: store it in the
+        # channels-last format once, here (one already so is kept, shared)
+        super()._load_from_state_dict(*args, **kwargs)
+        if self.channels_last and not self.w.transpose(1, 2).is_contiguous():
+            self.w = nn.Parameter(to_channels_last(self.w.detach()),
+                                  requires_grad=self.w.requires_grad)
+
+    def _forward_last(self, x: torch.Tensor, **kwargs) -> torch.Tensor:
+        """``conv_last`` of ``x`` with ``w``, plus the bias; the output keeps
+        the layout."""
+        y = conv_last(to_channels_last(x), self.w, self.stride, self.padding,
+                      **kwargs)
+        return y + self.bias.reshape(1, -1, 1)
 
     def weight(self) -> torch.Tensor:
         if self.folded:
@@ -228,7 +346,8 @@ class WNConv1d(_PackedConv):
                  stride: int = 1, padding: int = 0, dilation: int = 1,
                  pad_mode: str = "zeros", folded: bool = False,
                  dtype: torch.dtype = torch.float32, groups: int = 1,
-                 time_pack_in: int = 1, time_pack_out: int = 1):
+                 time_pack_in: int = 1, time_pack_out: int = 1,
+                 channels_last: bool = False):
         super().__init__()
         if pad_mode not in ("zeros", "none"):
             raise ValueError(f"pad_mode must be 'zeros' or 'none', got {pad_mode}")
@@ -243,7 +362,7 @@ class WNConv1d(_PackedConv):
         self.groups = groups
         _conv_params(self, (out_channels, in_channels // groups, kernel_size),
                      out_channels, folded, dtype)
-        self._init_pack(time_pack_in, time_pack_out)
+        self._init_pack(time_pack_in, time_pack_out, channels_last)
 
     def _pack_geometry(self) -> tuple:
         return (False, self.kernel_size, self.dilation, self.stride,
@@ -254,6 +373,9 @@ class WNConv1d(_PackedConv):
             t_out = (x.shape[-1] * self.time_pack_in + 2 * self.padding
                      - (self.kernel_size - 1) * self.dilation - 1) // self.stride + 1
             return self._packed_forward(x, t_out)
+        if self.channels_last:
+            return self._forward_last(x, dilation=self.dilation,
+                                      groups=self.groups)
         y = F.conv1d(x, self.weight(), None, self.stride, self.padding,
                      self.dilation, self.groups)
         return y + self.bias.reshape(1, -1, 1)
@@ -268,7 +390,8 @@ class WNConvTranspose1d(_PackedConv):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, pad_mode: str = "zeros",
                  folded: bool = False, dtype: torch.dtype = torch.float32,
-                 time_pack_in: int = 1, time_pack_out: int = 1):
+                 time_pack_in: int = 1, time_pack_out: int = 1,
+                 channels_last: bool = False):
         super().__init__()
         if pad_mode not in ("zeros", "none"):
             raise ValueError(f"pad_mode must be 'zeros' or 'none', got {pad_mode}")
@@ -279,7 +402,7 @@ class WNConvTranspose1d(_PackedConv):
         self.padding = padding if pad_mode == "zeros" else 0
         _conv_params(self, (in_channels, out_channels, kernel_size),
                      out_channels, folded, dtype)
-        self._init_pack(time_pack_in, time_pack_out)
+        self._init_pack(time_pack_in, time_pack_out, channels_last)
 
     def _pack_geometry(self) -> tuple:
         return (True, self.kernel_size, 1, self.stride, self.padding,
@@ -290,6 +413,8 @@ class WNConvTranspose1d(_PackedConv):
             t_out = ((x.shape[-1] * self.time_pack_in - 1) * self.stride
                      - 2 * self.padding + self.kernel_size)
             return self._packed_forward(x, t_out)
+        if self.channels_last:
+            return self._forward_last(x, transposed=True)
         y = F.conv_transpose1d(x, self.weight(), None, self.stride,
                                self.padding)
         return y + self.bias.reshape(1, -1, 1)
@@ -319,14 +444,15 @@ class Snake1d(nn.Module):
 
 class ResidualUnit(nn.Module):
     """Snake -> dilated k=7 conv -> Snake -> k=1 conv, plus the skip path,
-    center-cropped to the output when padding is off. ``folded``, ``approx``
-    and ``dtype`` go to every conv and Snake of the unit (as in the blocks
-    below); ``time_pack`` runs the unit in that packed layout (padding
-    only)."""
+    center-cropped to the output when padding is off. ``folded``, ``approx``,
+    ``dtype`` and ``channels_last`` go to every conv and Snake of the unit
+    (as in the blocks below); ``time_pack`` runs the unit in that packed
+    layout (padding only)."""
 
     def __init__(self, dim: int, dilation: int = 1, padding: bool = True,
                  folded: bool = False, approx: bool = False,
-                 dtype: torch.dtype = torch.float32, time_pack: int = 1):
+                 dtype: torch.dtype = torch.float32, time_pack: int = 1,
+                 channels_last: bool = False):
         super().__init__()
         if time_pack != 1 and not padding:
             raise ValueError("time-packed ResidualUnit requires padding=True")
@@ -336,10 +462,11 @@ class ResidualUnit(nn.Module):
         self.conv1 = WNConv1d(dim, dim, 7, dilation=dilation,
                               padding=3 * dilation, pad_mode=pad_mode,
                               folded=folded, dtype=dtype, time_pack_in=tp,
-                              time_pack_out=tp)
+                              time_pack_out=tp, channels_last=channels_last)
         self.snake2 = Snake1d(dim, approx, tp)
         self.conv2 = WNConv1d(dim, dim, 1, folded=folded, dtype=dtype,
-                              time_pack_in=tp, time_pack_out=tp)
+                              time_pack_in=tp, time_pack_out=tp,
+                              channels_last=channels_last)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv2(self.snake2(self.conv1(self.snake1(x))))
@@ -385,13 +512,14 @@ class DecoderBlock(nn.Module):
     layout), the transposed conv grows the packing to ``time_pack_in *
     stride`` and the units run packed; the output stays packed.
     ``packed_up_only``: only the transposed conv runs packed, and its output
-    is unpacked before the units."""
+    is unpacked before the units. ``channels_last``: every conv in that
+    layout (unpacked only)."""
 
     def __init__(self, input_dim: int, output_dim: int, stride: int = 1,
                  padding: bool = True, folded: bool = False,
                  approx: bool = False, dtype: torch.dtype = torch.float32,
                  packed: bool = False, time_pack_in: int = 1,
-                 packed_up_only: bool = False):
+                 packed_up_only: bool = False, channels_last: bool = False):
         super().__init__()
         tp_in = time_pack_in
         tp_out = tp_in * stride if (packed or packed_up_only) else 1
@@ -409,10 +537,11 @@ class DecoderBlock(nn.Module):
                                     padding=math.ceil(stride / 2),
                                     pad_mode="zeros" if padding else "none",
                                     folded=folded, dtype=dtype,
-                                    time_pack_in=tp_in, time_pack_out=tp_out)
-        self.res0 = ResidualUnit(output_dim, 1, padding, folded, approx, dtype, tp_units)
-        self.res1 = ResidualUnit(output_dim, 3, padding, folded, approx, dtype, tp_units)
-        self.res2 = ResidualUnit(output_dim, 9, padding, folded, approx, dtype, tp_units)
+                                    time_pack_in=tp_in, time_pack_out=tp_out,
+                                    channels_last=channels_last)
+        self.res0, self.res1, self.res2 = (
+            ResidualUnit(output_dim, d, padding, folded, approx, dtype, tp_units,
+                         channels_last) for d in (1, 3, 9))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.up(self.snake(x))

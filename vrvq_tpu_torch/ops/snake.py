@@ -10,6 +10,11 @@ the JAX ``snake_approx`` (``approx=True``), each on float32 or bfloat16 ``x``.
 Arithmetic is float32 in every mode, and a bfloat16 result is rounded once,
 as the JAX layer computes ``snake_approx`` in float32 and casts back.
 
+Two layouts, read from ``x``'s strides: ``(B, C, T)`` contiguous, or the
+same shape over channels-last memory (``(B, T, C)`` contiguous, transposed),
+which the bfloat16 decoder keeps for its NHWC convs. Each has a kernel of
+its own; any other layout raises. The plain versions take either.
+
 Training differentiates the two float32 modes: ``SnakeFunction`` runs the
 forward kernel and, in backward, the port's own backward kernel (the JAX
 package gets these gradients from XLA's autodiff of ``snake_reference`` and
@@ -48,11 +53,27 @@ SIN2_DC = tuple(_f32(i * _f32(c)) for i, c in enumerate(SIN2_C) if i)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
 
 
-def mode_name(dtype: torch.dtype, approx: bool) -> str:
+def mode_name(dtype: torch.dtype, approx: bool,
+              channels_last: bool = False) -> str:
     """The launch counter of a mode: ``snake``, ``snake_approx``,
-    ``snake_bf16`` or ``snake_approx_bf16``."""
+    ``snake_bf16`` or ``snake_approx_bf16``, with ``_cl`` on the end in the
+    channels-last layout."""
     return ("snake" + ("_approx" if approx else "")
-            + ("_bf16" if dtype == torch.bfloat16 else ""))
+            + ("_bf16" if dtype == torch.bfloat16 else "")
+            + ("_cl" if channels_last else ""))
+
+
+def is_channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x (B, C, T)`` lies in channels-last memory (``False`` when
+    it is contiguous, as a tensor of one channel or one frame is both);
+    raises ``ValueError`` on any other layout."""
+    if x.is_contiguous():
+        return False
+    if x.ndim == 3 and x.transpose(1, 2).is_contiguous():
+        return True
+    raise ValueError(
+        f"snake: x must be (B, C, T) contiguous or channels-last, got shape "
+        f"{tuple(x.shape)} with strides {x.stride()}")
 
 
 def _wide(x: torch.Tensor) -> torch.dtype:
@@ -158,7 +179,8 @@ def snake_approx_backward_reference(x: torch.Tensor, alpha: torch.Tensor,
     return dx.to(x.dtype), torch.sum(terms, dim=(0, 2)).to(alpha.dtype)
 
 
-def _check_operands(x: torch.Tensor, alpha: torch.Tensor) -> None:
+def _check_operands(x: torch.Tensor, alpha: torch.Tensor) -> bool:
+    """Raises on what no kernel takes; returns ``is_channels_last(x)``."""
     if x.dtype not in DTYPES or alpha.dtype != torch.float32:
         raise TypeError(
             f"snake: x must be float32 or bfloat16 and alpha float32, got "
@@ -168,10 +190,11 @@ def _check_operands(x: torch.Tensor, alpha: torch.Tensor) -> None:
             f"snake: x must be (B, C, T) and alpha (C,), got "
             f"{tuple(x.shape)} and {tuple(alpha.shape)}"
         )
-    if not (x.is_contiguous() and alpha.is_contiguous()):
-        raise ValueError("snake: x and alpha must be contiguous")
+    if not alpha.is_contiguous():
+        raise ValueError("snake: alpha must be contiguous")
     if alpha.device != x.device:
         raise ValueError("snake: x and alpha must be on the same device")
+    return is_channels_last(x)
 
 
 def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor,
@@ -188,7 +211,8 @@ def snake_backward(x: torch.Tensor, alpha: torch.Tensor, grad: torch.Tensor,
         return snake_backward_reference(x, alpha, grad)
     if x.device.type != "cuda":
         raise ValueError(f"snake_backward: unsupported device {x.device}")
-    _check_operands(x, alpha)
+    if _check_operands(x, alpha):
+        raise ValueError("snake_backward: x must be (B, C, T) contiguous")
     if x.dtype != torch.float32:
         raise TypeError("snake_backward: only the float32 mode has a backward")
     grad = grad.contiguous()
@@ -222,17 +246,22 @@ def _forward(x: torch.Tensor, alpha: torch.Tensor, approx: bool) -> torch.Tensor
         return snake_plain(x, alpha, approx)
     if x.device.type != "cuda":
         raise ValueError(f"snake: unsupported device {x.device}")
-    _check_operands(x, alpha)
-    y = torch.empty_like(x)
+    last = _check_operands(x, alpha)
+    y = torch.empty_like(x)  # x's strides: the same layout
     if x.numel() == 0:
         return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):  # the runtime launches on x's card
-        err = library().vrvq_snake_forward(
-            x.data_ptr(), alpha.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1],
-            x.shape[1], x.shape[2], DTYPES[x.dtype], int(approx),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    count("launches." + mode_name(x.dtype, approx))
+        if last:
+            err = library().vrvq_snake_forward_cl(
+                x.data_ptr(), alpha.data_ptr(), y.data_ptr(), x.numel(),
+                x.shape[1], DTYPES[x.dtype], int(approx), stream)
+        else:
+            err = library().vrvq_snake_forward(
+                x.data_ptr(), alpha.data_ptr(), y.data_ptr(),
+                x.shape[0] * x.shape[1], x.shape[1], x.shape[2],
+                DTYPES[x.dtype], int(approx), stream)
+    count("launches." + mode_name(x.dtype, approx, last))
     check(err, "snake")
     return y
 
@@ -259,8 +288,9 @@ class SnakeFunction(torch.autograd.Function):
 def snake(x: torch.Tensor, alpha: torch.Tensor,
           approx: bool = False) -> torch.Tensor:
     """Snake through the kernel for a CUDA tensor, the plain version for a
-    CPU tensor. Takes float32 or bfloat16 ``x (B, C, T)`` contiguous and
-    float32 ``alpha (C,)``; ``approx`` picks the polynomial ``sin^2``.
+    CPU tensor. Takes float32 or bfloat16 ``x (B, C, T)``, contiguous or
+    channels-last (the kernel of that layout), and float32 ``alpha (C,)``;
+    ``approx`` picks the polynomial ``sin^2``.
 
     Where a gradient is wanted (grad mode on and ``x`` or ``alpha``
     requiring grad), the float32 modes go through ``SnakeFunction`` and the

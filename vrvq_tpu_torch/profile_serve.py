@@ -51,7 +51,7 @@ PROFILES = {"exact": lambda m: m, "fast": fast.make_inference_model,
             "turbo_packed": lambda m: fast.make_serving_model(m, encode_packed=True)}
 
 CLASSES = [
-    ("snake_kernel", "snake (K2)"),
+    ("snake_kernel", "snake (K2)"), ("snake_cl_kernel", "snake (K2)"),
     ("rvq_kernel", "fused_rvq (K1)"),
     ("conv", "conv"), ("xmma", "conv"), ("cudnn", "conv"), ("fprop", "conv"),
     ("dgrad", "conv"), ("implicit", "conv"),

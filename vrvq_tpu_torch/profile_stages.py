@@ -32,11 +32,18 @@ kernels, which every packed module derives at each call).
 The encoder's input packing (a reshape and a copy of the (B, 1, T) audio)
 and the decoder's unpacking and tanh fall outside the stages; ``total``
 holds them.
+
+
+``conv_census`` (which ``chip_smoke.py``'s fast phase prints) times each
+conv geometry of the fast profile's bfloat16 decoder alone, in (B, C, T)
+and channels-last as the decoder runs it.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import functools
 import json
 import statistics
 import subprocess
@@ -44,6 +51,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 BATCH = 16
 CLIP_S = 10.0
@@ -177,6 +186,104 @@ def profile_stack(stack, fn, dtype: torch.dtype) -> dict:
                       "flop_share": flop_ms / ms, "byte_share": byte_ms / ms,
                       "bound_ms": max(flop_ms, byte_ms),
                       "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+    return rows
+
+
+def _layout_row(fn, runs: int) -> dict:
+    """``fn()`` on the card: the median device ms of ``runs`` calls (CUDA
+    events around each, after a warm-up) and the device kernels of one
+    traced call, longest first (name, ms)."""
+    from . import utils
+
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    for name, on_device, annotation, begin, finish in utils.profile_events(prof):
+        if utils.is_device_op(name, on_device, annotation):
+            kernels[name[:100]] += (finish - begin) / 1e6
+    return {"ms": statistics.median(times),
+            "kernels": [[k, v] for k, v in kernels.most_common()]}
+
+
+def conv_census(decoder, z: torch.Tensor, runs: int = RUNS) -> list:
+    """Each distinct conv geometry of ``decoder`` (unpacked, folded) on the
+    latents ``z``: where it sits (the first module of that geometry), its
+    calls a decode, its bound (bfloat16 operations at 989 TFLOP/s or input,
+    kernel and output bytes at 3.35 TB/s, the larger) and, on random inputs
+    of its shapes in the decoder's dtype, ``_layout_row`` in (B, C, T)
+    (``conv1d`` / ``conv_transpose1d``) and channels-last as the decoder
+    runs it (``nn/layers.conv_last``, in the form ``conv_form`` names),
+    with ``err_ulps``, the largest difference of the channels-last output
+    from the plain conv (float32 sums rounded once) in units of one
+    bfloat16 rounding (2^-7 of the plain value, plus 1e-5 of its largest):
+    at most 1 where the two agree."""
+    from .nn.layers import (WNConv1d, WNConvTranspose1d, conv_form, conv_last,
+                            to_channels_last)
+
+    seen = {}
+
+    def hook(name):
+        def record(module, args):
+            key = (isinstance(module, WNConvTranspose1d), tuple(args[0].shape),
+                   tuple(module.w.shape), module.stride, module.padding,
+                   getattr(module, "dilation", 1))
+            seen.setdefault(key, [name, 0])[1] += 1
+        return record
+
+    hooks = [m.register_forward_pre_hook(hook(n)) for n, m in decoder.named_modules()
+             if isinstance(m, (WNConv1d, WNConvTranspose1d))]
+    try:
+        decoder(z)
+    finally:
+        for h in hooks:
+            h.remove()
+    dtype = decoder.dtype
+    rows = []
+    for (transposed, xs, ws, stride, pad, dil), (name, calls) in seen.items():
+        gen = torch.Generator(device=z.device).manual_seed(len(rows))
+        x = torch.randn(xs, generator=gen, device=z.device).to(dtype)
+        w = (0.02 * torch.randn(ws, generator=gen, device=z.device)).to(dtype)
+        xl, wl = to_channels_last(x), to_channels_last(w)
+        if transposed:
+            cin, cout, k = ws
+            t_out = (xs[-1] - 1) * stride - 2 * pad + k
+            macs = xs[-1] * cin * cout * k
+            plain = functools.partial(F.conv_transpose1d, stride=stride, padding=pad)
+            form = "nhwc"
+        else:
+            cout, cin, k = ws
+            t_out = (xs[-1] + 2 * pad - dil * (k - 1) - 1) // stride + 1
+            macs = t_out * cout * cin * k
+            plain = functools.partial(F.conv1d, stride=stride, padding=pad,
+                                      dilation=dil)
+            form = conv_form(cout, stride, pad, dil)
+        cl = functools.partial(conv_last, xl, wl, stride, pad, dil,
+                               transposed=transposed)
+        batch = xs[0]
+        moved = x.element_size() * (x.numel() + w.numel() + batch * cout * t_out)
+        flop_ms = 2 * batch * macs / PEAK_FLOP_PER_S[dtype] * 1e3
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            want = plain(x.float(), w.float()).to(dtype).float()
+        scale = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+        err = ((cl().float() - want).abs() / scale).max().item()
+        del want, scale
+        rows.append({"conv": name, "calls": calls, "transposed": transposed,
+                     "cin": cin, "cout": cout, "k": k, "stride": stride,
+                     "dilation": dil, "t_in": xs[-1], "t_out": t_out, "form": form,
+                     "bound_ms": max(flop_ms, moved / HBM_BYTES_PER_S * 1e3),
+                     "ncl": _layout_row(lambda: plain(x, w), runs),
+                     "cl": _layout_row(cl, runs), "err_ulps": err})
+        del x, w, xl, wl
     return rows
 
 
